@@ -11,11 +11,12 @@ Builds the host library and the CUDA kernels from this checkout, then
    run's plan, in float64 and float32, against its plain PyTorch version on
    the same inputs, and times both with CUDA events: the forward kernels
    H1 matern_solve_e0, H2 leaf_assemble, H3 extend_add, H4 front_factor,
-   and the backward kernels H5 matern_solve_e0_bwd (against torch autograd
-   through H1's plain version), solve_e0_bwd (K2 one to one, off the
-   likelihood's path), H6 extend_add_bwd (writing, as on the main path,
-   through a strided view into child fronts' Schur blocks) and H7
-   leaf_assemble_bwd;
+   H8 solve_e0 (on the packed smoothness-0.8 covariances of the first row
+   chunk), and the backward kernels H5 matern_solve_e0_bwd (against torch
+   autograd through H1's plain version), solve_e0_bwd (K2 one to one, H8's
+   backward: at H8's shape and on random SPD matrices), H6 extend_add_bwd
+   (writing, as on the main path, through a strided view into child
+   fronts' Schur blocks) and H7 leaf_assemble_bwd;
 2. slice phase: drives ``vecchia_likelihood`` / ``loglik_fn`` on an SGV spec
    of bench.py's data (rng(1988) uniform locations, z ~ N(0, 1), covparms
    (1.0, 0.2, 0.5), nugget 0.1).  At the default size the f64 value on the
@@ -28,8 +29,30 @@ Builds the host library and the CUDA kernels from this checkout, then
    default size the f64 gradient on the card is held against the CPU plain
    path in f64 and the f32 gradient against the f64 one.  All launch
    counters are reset just before this phase, and each of H1-H7 must have
-   launched in it (solve_e0_bwd's count is read too, and may be 0).
-   --n 1000000 --m 40 runs phases 2 and 3 in f32 only.
+   launched in it;
+4. general-covariance phase: the same at covparms (1.0, 0.05, 0.8) (a
+   smoothness without closed form: the packed covariance is built in torch
+   through log K_nu and solved by H8 solve_e0, backward solve_e0_bwd), value
+   and value+grad (median of 5).  At the default size f64 on the card is
+   held against the CPU plain path in f64, f32 against f64, ``esqe`` runs
+   once, and the Matern at 0.5 passed as a user callable (H8's path) is
+   held against the built-in 'matern' (H1's path).  All launch counters are
+   reset just before the smoothness-0.8 runs and read just after them;
+   solve_e0 and solve_e0_bwd and the factor's kernels must launch in them.
+   At covparms (1.0, 0.2, 0.8), the range users start at, where f32 drops
+   rows: value and gradient finite, and the first row chunk's U entries in
+   f32 held against f64 on the well-conditioned rows both keep;
+5. estimation phase: ``vecchia_estimate`` (L-BFGS-B, f32 on the card,
+   max_iter 5, 3 at n=1e6) on this run's data plus a constant trend, and at
+   the default size a check at n=2000 on a dense GP draw in f64: the card's
+   estimate must reach the CPU's log-likelihood to 1e-6 relative.
+   --n 1000000 --m 40 runs phases 2-4 in f32 only.
+
+The kernel phase also computes each kernel's bound (the least time the card
+could take: the larger of the bytes its inputs and outputs need over the
+HBM rate and its operations over the SIMT peak) and, where one PyTorch call
+computes the same function (H1 and H8: ``torch.linalg.solve`` on the
+conditioning matrices), that call's time.
 
 Every phase raises on failure (exit code != 0).  The last line of standard
 output is one JSON object naming the device.  Without a CUDA device, or
@@ -56,8 +79,18 @@ import torch
 #  * float32: the kernel's error against the float64 plain result may be at
 #    most 4x the float32 plain version's own error against it, plus
 #    1e-6 relative: a float32 kernel must be as accurate as float32 torch.
+#  * float32 on the packed smoothness-0.8 covariances (H8, solve_e0_bwd):
+#    many of these matrices are so ill-conditioned that float32 torch
+#    itself is wrong by as much as the values, so the rule above would pass
+#    anything there.  These kernels are held in float32 only on the rows
+#    whose float64 matrix has a 2-norm condition number <= 1e5, and to at
+#    most 1e-3 of those rows' largest entry.  On the CPU (first row chunk
+#    at n=1e5/m=20 and all of n=2.6e4/m=40, ranges 0.05 and 0.2) float32
+#    torch is within 1.0e-4 (H8) and 1.1e-4 (solve_e0_bwd) of that scale
+#    on those rows, which are 85-100 % of them.
 F64_REL_TOL = 1e-9
 F32_FACTOR, F32_FLOOR = 4.0, 1e-6
+F32_COND_MAX, F32_CAP = 1e5, 1e-3
 # Slice tolerances: f64 card vs f64 CPU plain path (same algorithm, other
 # summation orders), and f32 card vs f64 card (f32 rounding accumulated over
 # ~1e5 log/quadratic terms; expected ~1e-5 relative).
@@ -73,9 +106,50 @@ SLICE_F32_REL = 2e-4
 #    card's summation orders and the larger n.
 GRAD_F64_REL = 1e-8
 GRAD_F32_REL = 1e-4
+# General-covariance phase (smoothness 0.8):
+#  * f64 card vs f64 CPU: value 1e-9 relative; gradient 1e-8 of |g|max in
+#    (sig2, rho, nugget); d/dnu 1e-6 relative (a central difference over
+#    2h = 6e-6 divides the log K_nu rounding of the two summation orders).
+#  * f32 card vs f64 card: value 2e-4 relative; gradient per group: (sig2,
+#    rho) 1e-3 of the pair's max, d/dnu 2e-2 relative, nuggets 1e-3 of
+#    their max.  On the CPU at n=2e4, m=20, covparms (1.0, 0.2, 0.8), f32
+#    vs f64 measured 1.1e-6 (value), 4.4e-5 (sig2, rho), 1.34e-3 (d/dnu:
+#    f32 steps h = 1e-3 and f64 h = 3e-6, so the two central differences
+#    differ by O(h^2) and f32 rounding over 2h) and 3.3e-5 (vector
+#    nuggets), so these leave a factor 15-30 for the card's summation
+#    orders and the larger n; at the range 0.05 used below the same
+#    measurement gives 2.6e-7, 1.1e-5, 2.3e-4 and 7.2e-6.
+#  * the nu = 0.5 callable (H8's path) vs the built-in 'matern' (H1's), f64:
+#    1e-10 relative in value, 1e-10 of |g|max in (sig2, rho, nugget).
+GEN_F64_REL, GEN_DNU_F64_REL = 1e-9, 1e-6
+GEN_F32_PAIR, GEN_F32_DNU, GEN_F32_NUG = 1e-3, 2e-2, 1e-3
+CROSS_REL = 1e-10
+# Estimation: the card's L-BFGS-B estimate vs the CPU's, log-likelihood at
+# the estimate, f64 (the same iterates up to gradient rounding).
+EST_REL = 1e-6
 
 COVPARMS = (1.0, 0.2, 0.5)
+# A smoothness without closed form.  The range is 0.05, not 0.2: at 0.2
+# the smooth nu = 0.8 kernel makes some conditioning matrices numerically
+# singular in float32 (on the CPU 1 row of n=1e5/m=20, and 48 of 2e5
+# sampled rows of n=1e6/m=40; 0 and 2 of them at 0.05).  Such a row is
+# dropped from the value in f32 and not in f64, so the f32-vs-f64 checks
+# need a range where none drops.
+GEN_COVPARMS = (1.0, 0.05, 0.8)
+# The range users start at (the JAX package's default start takes the
+# range from the data's spread, ~0.13 on the unit square): f32 drops rows
+# there, and ``users_range_check`` holds what still can be held.  Its U
+# entries in f32 vs f64, on the rows of the first chunk that both keep and
+# whose f64 matrix has cond <= F32_COND_MAX, relative to their largest
+# entry: on the CPU 2.3e-3 (n=1e5/m=20) and 9.0e-4 (n=2.6e4/m=40) at this
+# range, 8.5e-4 and 6.2e-4 at range 0.05, so 1e-2 leaves a factor 4.
+USER_COVPARMS = (1.0, 0.2, 0.8)
+U_F32_REL = 1e-2
 NUGGET = 0.1
+
+# H100 SXM (NVIDIA data sheet): HBM3 rate, SIMT float32 and float64 peaks
+HBM_BPS = 3.35e12
+PEAK_FLOPS = {torch.float32: 67e12, torch.float64: 34e12}
 
 
 def log(msg):
@@ -96,13 +170,21 @@ class KernelCheck:
         self.name = name
         self.rows = []
 
-    def run(self, label, make_inputs, kernel, plain, out_of, mutates=False,
-            main=True):
+    def run(self, label, make_inputs, kernel, plain, out_of, cost,
+            mutates=False, main=True, library=None, f32_rows=None):
         """make_inputs(dtype) -> tuple of CUDA tensors; kernel/plain(*inputs)
         -> result; out_of(result) -> the compared tensor or tuple of tensors
-        (each held to the rule with its own scale).  ``mutates``: the call
-        works in place, so every call gets freshly made inputs.  ``main``:
-        the shape is the one the slice's main path gives the kernel."""
+        (each held to the rule with its own scale).  ``cost(dtype)`` ->
+        (bytes, operations) the function needs at this shape: each input
+        read once, each output written once, operations of what this run's
+        data needs.  ``mutates``: the call works in place, so every call
+        gets freshly made inputs.  ``main``: the shape is the one the
+        slice's main path gives the kernel.  ``library(dtype)`` -> a
+        no-argument call of one PyTorch function computing the same
+        function on the same inputs (set up outside the timing), timed at
+        the main shape only.  ``f32_rows``: a mask of the leading dimension;
+        float32 is then held on those rows only, and to at most F32_CAP of
+        their scale (see F32_COND_MAX)."""
         ref = _parts(out_of(plain(*make_inputs(torch.float64))))
         scales = [r.abs().max().item() for r in ref]
         for dt in (torch.float64, torch.float32):
@@ -111,30 +193,46 @@ class KernelCheck:
             torch.cuda.synchronize()
             ok, worst = True, None
             for k, p, r, scale in zip(ks, ps, ref, scales):
-                err = (k - p).abs().max().item()
                 if dt == torch.float64:
+                    err = held = (k - p).abs().max().item()
                     tol = F64_REL_TOL * scale
-                    good = err <= tol
                 else:
-                    err_p = (p - r).abs().max().item()
-                    tol = F32_FACTOR * err_p + F32_FLOOR * scale
-                    good = (k - r).abs().max().item() <= tol
-                good = good and bool(np.isfinite(err))
+                    if f32_rows is not None:
+                        k, p, r = k[f32_rows], p[f32_rows], r[f32_rows]
+                        scale = r.abs().max().item()
+                    err = (k - p).abs().max().item()
+                    held = (k - r).abs().max().item()
+                    tol = (F32_FACTOR * (p - r).abs().max().item()
+                           + F32_FLOOR * scale)
+                    if f32_rows is not None:
+                        tol = min(tol, F32_CAP * scale)
+                good = held <= tol and bool(np.isfinite(err))
                 ok = ok and good
-                ratio = err / tol if tol > 0 else float(err > 0)
+                ratio = held / tol if tol > 0 else float(held > 0)
                 if worst is None or not good or ratio > worst[0]:
-                    worst = (ratio, err, tol, scale)
+                    worst = (ratio, err, held, tol, scale)
             del ks, ps
-            _, err, tol, scale = worst
+            _, err, held, tol, scale = worst
+            rows = ("" if f32_rows is None or dt == torch.float64 else
+                    f" on {int(f32_rows.sum())}/{len(f32_rows)} rows")
             ms = self._time(kernel, make_inputs, dt, mutates)
             plain_ms = self._time(plain, make_inputs, dt, mutates)
+            bound_ms, bound_by = _bound(*cost(dt), dt)
+            library_ms = None
+            if library is not None and main:
+                library_ms = cuda_time(library(dt), 3)
+                torch.cuda.empty_cache()
             row = dict(shape=label, dtype=str(dt).split(".")[-1],
-                       max_abs_err=err, tol=tol, scale=scale, ms=ms,
-                       plain_ms=plain_ms, main=main)
+                       max_abs_err=err, held_err=held, tol=tol, scale=scale,
+                       ms=ms, plain_ms=plain_ms, main=main, bound_ms=bound_ms,
+                       bound_by=bound_by, library_ms=library_ms)
             self.rows.append(row)
+            lib = "" if library_ms is None else f"  library {library_ms:.3f} ms"
+            vs = "plain" if dt == torch.float64 else "f64 plain"
             log(f"  {self.name:19s} {label:34s} {row['dtype']}: "
-                f"max_abs_err {err:.3e} (tol {tol:.3e}, scale {scale:.3e}) "
-                f"kernel {ms:.3f} ms  plain {plain_ms:.3f} ms")
+                f"max_abs_err {err:.3e}; vs {vs}{rows} {held:.3e} (tol "
+                f"{tol:.3e}, scale {scale:.3e}) kernel {ms:.3f} ms  plain "
+                f"{plain_ms:.3f} ms  bound {bound_ms:.3f} ms ({bound_by}){lib}")
             if not ok:
                 raise AssertionError(f"{self.name} {label} {dt}: kernel "
                                      f"disagrees with its plain version")
@@ -151,6 +249,24 @@ class KernelCheck:
             times.append(_once(fn, args))
             del args
         return statistics.median(times[1:])
+
+
+def _bound(nbytes, flops, dt):
+    """(ms, 'bytes' or 'operations'): the larger of the bytes over the HBM
+    rate and the operations over the SIMT peak of ``dt``."""
+    t_bytes, t_ops = nbytes / HBM_BPS, flops / PEAK_FLOPS[dt]
+    return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops
+                                       else "operations")
+
+
+def _chol_solve_ops(F, rhs=1):
+    """Operations of one F x F Cholesky (F^3/3) and rhs pairs of triangular
+    solves (2 F^2 each)."""
+    return F ** 3 / 3 + 2 * F ** 2 * rhs
+
+
+def _size(dt):
+    return torch.empty((), dtype=dt).element_size()
 
 
 def _parts(result):
@@ -192,6 +308,51 @@ def h5_plain(locs, NN, valid, resp, nug, covparms, x, xbar, chunk=32768):
     return dc, dn
 
 
+def _first_chunk(spec, dev):
+    """The first row chunk of the general path's plan on ``dev``: float64
+    locations and nuggets, and the chunk's NN, valid and cond."""
+    from gpvecchia_torch.kernels import u_entries as UE
+    from gpvecchia_torch.plan import get_plan
+    plan = get_plan(spec)
+    rows = UE._row_chunks(plan.NN.shape[0], plan.NN.shape[1],
+                          torch.float32)[0]
+    out = {k: torch.as_tensor(getattr(plan, k)[rows], device=dev)
+           for k in ("NN", "valid", "cond")}
+    out["locs"] = torch.as_tensor(plan.locs, device=dev)
+    out["nug"] = torch.full((plan.n_all,), NUGGET, dtype=torch.float64,
+                            device=dev)
+    return out
+
+
+def _packed_cov(chunk, covparms):
+    """The chunk's packed float64 Matern covariances (rows, P)."""
+    from gpvecchia_torch.kernels import covariance as CV
+    from gpvecchia_torch.kernels import u_entries as UE
+    return UE.build_cov_packed(
+        chunk["locs"], chunk["NN"], chunk["valid"], chunk["cond"],
+        chunk["nug"], CV.matern,
+        torch.tensor(covparms, dtype=torch.float64, device=chunk["locs"].device))
+
+
+def _cond64(Cp64, F, step=16384):
+    """2-norm condition numbers of packed float64 SPD matrices (inf where
+    one is not positive definite)."""
+    from gpvecchia_torch.kernels import matern_solve as MS
+    out = []
+    for s in range(0, Cp64.shape[0], step):
+        ev = torch.linalg.eigvalsh(MS._unpack(Cp64[s:s + step], F), UPLO="L")
+        out.append(torch.where(ev[:, 0] > 0, ev[:, -1] / ev[:, 0], torch.inf))
+    return torch.cat(out)
+
+
+def _library_solve(C):
+    """A no-argument call of torch.linalg.solve(C, e0) on (n, F, F) C."""
+    e0 = torch.zeros(C.shape[0], C.shape[1], 1, dtype=C.dtype,
+                     device=C.device)
+    e0[:, 0] = 1.0
+    return lambda: torch.linalg.solve(C, e0)
+
+
 def kernel_phase(spec, mf, seed, dev):
     from gpvecchia_torch.geometry.neighbors import find_ordered_nn
     from gpvecchia_torch.geometry.sgv import which_cond_on_latent
@@ -205,7 +366,7 @@ def kernel_phase(spec, mf, seed, dev):
     h1 = checks["matern_solve_e0"] = KernelCheck("matern_solve_e0")
     h5 = checks["matern_solve_e0_bwd"] = KernelCheck("matern_solve_e0_bwd")
     m = spec.m
-    n_all = spec.locsord.shape[0]
+    n_all, d = spec.locsord.shape
     for F in (11, 21, 41):
         if F <= m + 1:
             NN = spec.NNarray[:, :F]
@@ -226,8 +387,26 @@ def kernel_phase(spec, mf, seed, dev):
                     torch.tensor(COVPARMS, dtype=torch.float64))
 
         label = f"n={NN.shape[0]} F={F}"
+        n = NN.shape[0]
+
+        def cost_h1(dt, n=n, F=F, extra=0):
+            # locs, nug_point, NN, valid, resp in; x out (+ extra bytes);
+            # the covariance build takes ~12 operations a pair
+            sz = _size(dt)
+            return (n_all * (d + 1) * sz + n * F * (4 + 2) + n * F * sz
+                    + extra, n * (_chol_solve_ops(F) + 12 * F * (F + 1) / 2))
+
+        def lib_h1(dt, mk=mk, n=n, F=F):
+            locs, NNt, v, r, ng, cp = mk(dt)
+            C = torch.empty(n, F, F, dtype=dt, device=dev)
+            for s0 in range(0, n, 65536):
+                sl = slice(s0, s0 + 65536)
+                C[sl] = MS._cov_chunk(locs, NNt[sl].long(), v[sl], r[sl], ng,
+                                      cp.to(dev, dt))[0]
+            return _library_solve(C)
+
         h1.run(label, mk, MS.matern_solve_e0, MS.matern_solve_e0_plain,
-               lambda x: x, main=F == m + 1)
+               lambda x: x, cost_h1, main=F == m + 1, library=lib_h1)
 
         xbar = rng.normal(size=NN.shape)
         bwd_in = {}
@@ -240,12 +419,53 @@ def kernel_phase(spec, mf, seed, dev):
                                                         device=dev))
             return bwd_in[dt]
 
+        def cost_h5(dt, n=n, F=F):
+            # H1's inputs plus x and xbar in, dpar (n, 2) f64 and dslot out;
+            # ~20 operations a pair for the rebuild and the contraction
+            sz = _size(dt)
+            nbytes, _ = cost_h1(dt, n, F, extra=2 * n * F * sz + 16 * n)
+            return nbytes, n * (_chol_solve_ops(F) + 20 * F * (F + 1) / 2)
+
         h5.run(label, mk_bwd, MS.matern_solve_e0_bwd, h5_plain,
-               lambda r: (r[0][:2], r[1]), main=F == m + 1)
+               lambda r: (r[0][:2], r[1]), cost_h5, main=F == m + 1)
         del bwd_in
 
-    # ---- solve_e0_bwd (K2 one to one) at F = 41 on SPD matrices ----
+    # ---- H8 solve_e0 and solve_e0_bwd at the general path's shape: the
+    # packed smoothness-0.8 covariances of the first row chunk ----
+    chunk = _first_chunk(spec, dev)
+    F = chunk["NN"].shape[1]
+    Cp64 = _packed_cov(chunk, GEN_COVPARMS)
+    n8, P8 = Cp64.shape
+    well = _cond64(Cp64, F) <= F32_COND_MAX
+
+    def cost_h8(dt):
+        sz = _size(dt)
+        return n8 * (P8 + F) * sz, n8 * _chol_solve_ops(F)
+
+    h8 = checks["solve_e0"] = KernelCheck("solve_e0")
+    h8.run(f"n={n8} F={F} (nu 0.8)", lambda dt: (Cp64.to(dt),), MS.solve_e0,
+           MS.solve_e0_plain, lambda x: x, cost_h8,
+           library=lambda dt: _library_solve(MS._unpack(Cp64.to(dt), F)),
+           f32_rows=well)
+    k2_main = (Cp64, MS.solve_e0_plain(Cp64),
+               torch.randn(n8, F, generator=torch.Generator(device=dev)
+                           .manual_seed(seed), dtype=torch.float64,
+                           device=dev))
+    del Cp64
+
+    def cost_k2(dt, n=n8, F=F):
+        sz = _size(dt)
+        P = F * (F + 1) // 2
+        return 2 * n * (P + F) * sz, n * (_chol_solve_ops(F) + 3 * P)
+
     k2 = checks["solve_e0_bwd"] = KernelCheck("solve_e0_bwd")
+    k2.run(f"n={n8} F={F} (nu 0.8)", lambda dt: tuple(t.to(dt)
+                                                      for t in k2_main),
+           MS.solve_e0_bwd, MS.solve_e0_bwd_plain, lambda r: r, cost_k2,
+           f32_rows=well)
+    del k2_main, chunk
+
+    # ---- solve_e0_bwd (K2 one to one) at F = 41 on random SPD matrices --
     n2, F = 65536, 41
     g = torch.Generator(device=dev).manual_seed(seed)
     A = torch.randn(n2, F, F, generator=g, dtype=torch.float64,
@@ -258,8 +478,9 @@ def kernel_phase(spec, mf, seed, dev):
     k2_in = (C[:, iu, ju], x,
              torch.randn(n2, F, generator=g, dtype=torch.float64, device=dev))
     del A, C, e0
-    k2.run(f"n={n2} F={F}", lambda dt: tuple(t.to(dt) for t in k2_in),
-           MS.solve_e0_bwd, MS.solve_e0_bwd_plain, lambda r: r, main=False)
+    k2.run(f"n={n2} F={F} (SPD)", lambda dt: tuple(t.to(dt) for t in k2_in),
+           MS.solve_e0_bwd, MS.solve_e0_bwd_plain, lambda r: r,
+           lambda dt: cost_k2(dt, n2, F), main=False)
     del k2_in
 
     # ---- H2 + H4, and H7, at the leaf's shape ----
@@ -283,23 +504,47 @@ def kernel_phase(spec, mf, seed, dev):
                 torch.as_tensor(rv, dtype=dt, device=dev))
 
     label = f"leaf N={N} EL={EL} K={K} F1={F1}"
+    # each real element adds the lower triangle of its (k+1)-vector's
+    # outer product (k valid slots and the rhs), one FMA (2 operations) an
+    # entry
+    k_e = (epos >= 0).sum(-1)[leaf.elem_pt >= 0]
+    leaf_ops = float(((k_e + 1) * (k_e + 2)).sum())
+    leaf_in = epos.size * 4 + (u.size + re.size + dv.size + rv.size)
+
+    def cost_h2(dt):
+        return (leaf_in - epos.size) * _size(dt) + epos.size * 4 \
+            + N * F1 * F1 * _size(dt), leaf_ops
+
+    def cost_h4(dt, N=N, F1=F1, P=P):
+        B1 = F1 - P
+        return 2 * N * F1 * F1 * _size(dt), N * (P ** 3 / 3 + B1 * P * P
+                                                 + B1 * B1 * P)
+
     h2 = checks["leaf_assemble"] = KernelCheck("leaf_assemble")
     h2.run(label, mk_leaf, FR.leaf_assemble, FR.leaf_assemble_plain,
-           torch.tril)
+           torch.tril, cost_h2)
 
     h4 = checks["front_factor"] = KernelCheck("front_factor")
     fronts = {dt: FR.leaf_assemble_plain(*mk_leaf(dt))
               for dt in (torch.float64, torch.float32)}
 
     h4.run(label + f" P={P}", lambda dt: (fronts[dt].clone(), P),
-           FR.front_factor, FR.front_factor_plain, torch.tril, mutates=True)
+           FR.front_factor, FR.front_factor_plain, torch.tril, cost_h4,
+           mutates=True)
     del fronts
 
     h7 = checks["leaf_assemble_bwd"] = KernelCheck("leaf_assemble_bwd")
     dfront = {torch.float64: _sym_randn((N, F1, F1), seed + 7, dev)}
     dfront[torch.float32] = dfront[torch.float64].float()
+    def cost_h7(dt):
+        # dfront, u, epos, rhs_elem in; du, d rhs_elem, d dvec, d rvec out
+        sz = _size(dt)
+        return (N * F1 * F1 * sz + epos.size * 4 + 2 * (u.size + re.size) * sz
+                + 2 * N * F1 * sz), leaf_ops
+
     h7.run(label, lambda dt: (dfront[dt],) + mk_leaf(dt)[:3],
-           FR.leaf_assemble_bwd, FR.leaf_assemble_bwd_plain, lambda r: r)
+           FR.leaf_assemble_bwd, FR.leaf_assemble_bwd_plain, lambda r: r,
+           cost_h7)
     del dfront
 
     # ---- H3 + H4, and H6, at the top internal level with the widest
@@ -328,9 +573,18 @@ def kernel_phase(spec, mf, seed, dev):
                     torch.as_tensor(rv, dtype=dt, device=dev))
 
         label = f"level {d_top} N={N} Bc1={Bc1} F1={F1}"
+        # each child's update adds its lower triangle into the front
+        b = (ext >= 0).sum(-1)
+        eadd_ops = float((b * (b + 1) / 2).sum())
+
+        def cost_h3(dt):
+            sz = _size(dt)
+            return (ch.size * sz + ext.size * 4 + 2 * N * F1 * sz
+                    + N * F1 * F1 * sz), eadd_ops
+
         h3 = checks["extend_add"] = KernelCheck("extend_add")
         h3.run(label, mk_top, FR.extend_add, FR.extend_add_plain,
-               torch.tril)
+               torch.tril, cost_h3)
         G = rng.normal(size=(N, F1, F1)) / np.sqrt(F1)
         spd = G @ np.swapaxes(G, 1, 2) + np.eye(F1)
         spd = 0.5 * (spd + np.swapaxes(spd, 1, 2))
@@ -339,7 +593,7 @@ def kernel_phase(spec, mf, seed, dev):
 
         h4.run(label + f" P={P}", lambda dt: (fronts_top[dt].clone(), P),
                FR.front_factor, FR.front_factor_plain, torch.tril,
-               mutates=True, main=False)
+               lambda dt: cost_h4(dt, N, F1, P), mutates=True, main=False)
         del fronts_top
 
         # H6 writes, as on the main path, into the child fronts' [Pc:, Pc:]
@@ -376,23 +630,30 @@ def kernel_phase(spec, mf, seed, dev):
             rest[:, Pc:, Pc:] = 0.0
             return r[:3] + (rest.abs().amax(),)
 
+        def cost_h6(dt):
+            # a gather: dfront and ext in; the children's blocks, d dvec and
+            # d rvec out
+            sz = _size(dt)
+            return (N * F1 * F1 * sz + ext.size * 4 + 2 * N * Bc1 * Bc1 * sz
+                    + 2 * N * F1 * sz), 0.0
+
         h6.run(label + f" F1c={F1c}", mk_h6, h6_kernel, h6_plain, h6_out,
-               mutates=True)
+               cost_h6, mutates=True)
         del dfront
     return checks
 
 
-def value_grad(fn, zt, nug):
+def value_grad(fn, zt, nug, covparms=COVPARMS):
     """(loglik, dcovparms, dnuggets) as host values: covparms and nuggets
     are float64 CPU tensors, so their gradients come back there."""
-    c = torch.tensor(COVPARMS, dtype=torch.float64, requires_grad=True)
+    c = torch.tensor(covparms, dtype=torch.float64, requires_grad=True)
     g = torch.tensor(nug, dtype=torch.float64, requires_grad=True)
     ll = fn(zt, c, g)
     dc, dg = torch.autograd.grad(ll, (c, g))
     return ll.detach().item(), dc.numpy(), dg.numpy()
 
 
-def profile_eval(spec, z, grad):
+def profile_eval(spec, z, grad, covparms=COVPARMS):
     """One warm f32 evaluation (value and gradient if ``grad``) under
     torch.profiler: device time by kernel and the device's busy share of
     its wall time."""
@@ -404,9 +665,9 @@ def profile_eval(spec, z, grad):
 
     def once():
         if grad:
-            value_grad(fn, zt, NUGGET)
+            value_grad(fn, zt, NUGGET, covparms)
         else:
-            float(fn(zt, COVPARMS, NUGGET))
+            float(fn(zt, covparms, NUGGET))
 
     once()
     torch.cuda.synchronize()
@@ -426,7 +687,7 @@ def profile_eval(spec, z, grad):
         elif b > end:
             busy += b - end
             end = b
-    what = "value+grad" if grad else "eval"
+    what = ("value+grad" if grad else "eval") + f" at {covparms}"
     log(prof.key_averages().table(sort_by="self_device_time_total",
                                   row_limit=30))
     log(f"profile: {what} wall {wall_us / 1e3:.2f} ms, device busy "
@@ -434,13 +695,12 @@ def profile_eval(spec, z, grad):
         f"{len(spans)} device events")
 
 
-def grad_phase(spec, z, big, counters, off_path):
+def grad_phase(spec, z, big, counters):
     """Value and gradient on the card; returns (results, launches, peak).
-    Each kernel of ``counters`` must launch in this phase; those of
-    ``off_path`` are counted too but need not launch."""
+    Each kernel of ``counters`` must launch in this phase."""
     import gpvecchia_torch as gt
     nvec = np.linspace(0.05, 0.15, len(z))
-    for k in counters + off_path:
+    for k in counters:
         k.launches = 0
     torch.cuda.reset_peak_memory_stats()
     res = {}
@@ -472,7 +732,7 @@ def grad_phase(spec, z, big, counters, off_path):
             f"{np.abs(vec[2]).max():.6e}")
         log(f"  cuda {name}: first value+grad {first_s:.2f} s, median "
             f"value+grad {res[name]['value_grad_ms']:.2f} ms over 5")
-    launches = {k.__name__: k.launches for k in counters + off_path}
+    launches = {k.__name__: k.launches for k in counters}
     peak = torch.cuda.max_memory_allocated()
     log(f"  launches during the gradient phase: {launches}")
     log(f"  peak device memory: {peak / 2**30:.3f} GiB")
@@ -505,6 +765,310 @@ def grad_phase(spec, z, big, counters, off_path):
         raise AssertionError("gradient: the card disagrees with the "
                              "reference path")
     return res, launches, peak
+
+
+def _exp05(dist, covparms):
+    """The Matern at smoothness 0.5 as a user callable (H8's path)."""
+    return covparms[0] * torch.exp(-dist / covparms[1])
+
+
+def cov_layer_ms(spec, dt):
+    """(build, build + VJP) milliseconds of the packed smoothness-0.8
+    covariance over all row chunks: the log K_nu layer of one evaluation
+    and of one value+grad (the backward's rebuild and its three more
+    log K_nu evaluations), without the solves and the factor."""
+    from gpvecchia_torch.kernels import covariance as CV
+    from gpvecchia_torch.kernels import u_entries as UE
+    from gpvecchia_torch.plan import get_plan
+    plan = get_plan(spec)
+    dev = "cuda"
+    locs = torch.as_tensor(plan.locs, dtype=dt, device=dev)
+    NN, valid, cond = (torch.as_tensor(a, device=dev)
+                       for a in (plan.NN, plan.valid, plan.cond))
+    nug = torch.full((plan.n_all,), NUGGET, dtype=dt, device=dev)
+    cp = torch.tensor(GEN_COVPARMS, dtype=dt, device=dev)
+    chunks = UE._row_chunks(NN.shape[0], NN.shape[1], dt)
+
+    def kernel(dist, c):
+        return CV.matern(dist, c, CV.GENERAL)
+
+    def build():
+        for sl in chunks:
+            UE.build_cov_packed(locs, NN[sl], valid[sl], cond[sl], nug,
+                                kernel, cp)
+
+    def build_vjp():
+        c = cp.clone().requires_grad_(True)
+        for sl in chunks:
+            Cp = UE.build_cov_packed(locs, NN[sl], valid[sl], cond[sl], nug,
+                                     kernel, c)
+            torch.autograd.grad(Cp, c, torch.ones_like(Cp))
+
+    return cuda_time(build, 3), cuda_time(build_vjp, 3)
+
+
+def users_range_check(spec, z, big):
+    """The smoothness-0.8 Matern at the range of the JAX package's default
+    start (USER_COVPARMS), where float32 drops rows.  Value and gradient on
+    the card must be finite in each dtype run.  Over the first row chunk the
+    U entries (H8's path) in float32 and float64 must agree on the rows that
+    both keep and whose float64 matrix has a condition number <=
+    F32_COND_MAX."""
+    import gpvecchia_torch as gt
+    from gpvecchia_torch.kernels import u_entries as UE
+    dev = "cuda"
+    res = {}
+    for dt in ((torch.float32,) if big else (torch.float64, torch.float32)):
+        name = str(dt).split(".")[-1]
+        fn = gt.loglik_fn(spec, device=dev, dtype=dt, with_aux=True)
+        c = torch.tensor(USER_COVPARMS, dtype=torch.float64,
+                         requires_grad=True)
+        g = torch.tensor(NUGGET, dtype=torch.float64, requires_grad=True)
+        ll, aux = fn(torch.as_tensor(z, dtype=dt, device=dev), c, g)
+        dc, dg = torch.autograd.grad(ll, (c, g))
+        ll, dropped = float(ll.detach()), int(aux["n_dropped_rows"])
+        if not (np.isfinite(ll) and bool(torch.isfinite(dc).all())
+                and bool(torch.isfinite(dg))):
+            raise AssertionError(f"covparms {USER_COVPARMS} {name}: value or "
+                                 f"gradient not finite")
+        res[name] = dict(loglik=ll, dcovparms=dc.tolist(), dnugget=float(dg),
+                         dropped_rows=dropped)
+        log(f"  covparms {USER_COVPARMS} cuda {name}: loglik {ll!r}, "
+            f"dcovparms {dc.numpy()}, dnugget {float(dg)!r}; rows dropped "
+            f"(not SPD) {dropped}")
+    if not big:
+        res["value_rel_f32_f64"] = abs(
+            res["float32"]["loglik"] - res["float64"]["loglik"]) / abs(
+                res["float64"]["loglik"])
+        log(f"  value f32 vs f64 {res['value_rel_f32_f64']:.3e} relative (not "
+            f"held: a row that f32 drops leaves the value)")
+
+    chunk = _first_chunk(spec, dev)
+    well = _cond64(_packed_cov(chunk, USER_COVPARMS),
+                   chunk["NN"].shape[1]) <= F32_COND_MAX
+    cols = {}
+    for dt in (torch.float64, torch.float32):
+        col, bad = UE.u_entries(
+            chunk["locs"].to(dt), chunk["NN"], chunk["valid"], chunk["cond"],
+            chunk["nug"].to(dt), torch.tensor(USER_COVPARMS,
+                                              dtype=torch.float64))
+        cols[dt] = col.double(), bad
+    (c64, b64), (c32, b32) = cols[torch.float64], cols[torch.float32]
+    held = ~b64 & ~b32 & well
+    rel = ((c32 - c64)[held].abs().max() / c64[held].abs().max()).item()
+    res["u_entries"] = dict(rows=len(held), dropped_f64=int(b64.sum()),
+                            dropped_f32=int(b32.sum()), held=int(held.sum()),
+                            rel=rel)
+    log(f"  U entries of the first {len(held)} rows: dropped f64 "
+        f"{int(b64.sum())}, f32 {int(b32.sum())}; f32 vs f64 on the "
+        f"{int(held.sum())} rows both keep with cond <= {F32_COND_MAX:g}: "
+        f"{rel:.3e} of their max (tol {U_F32_REL:g})")
+    if not rel <= U_F32_REL:
+        raise AssertionError(f"covparms {USER_COVPARMS}: f32 U entries "
+                             f"disagree with f64")
+    return res
+
+
+def general_phase(spec, z, big, counters):
+    """Value and value+grad at smoothness 0.8 on the card (H8 and
+    solve_e0_bwd with the factor's kernels); returns (results, launches,
+    peak).  Every kernel of ``counters`` must launch in this phase."""
+    import gpvecchia_torch as gt
+    for k in counters:
+        k.launches = 0
+    torch.cuda.reset_peak_memory_stats()
+    res = {}
+    for dt in ((torch.float32,) if big else (torch.float64, torch.float32)):
+        name = str(dt).split(".")[-1]
+        t0 = time.perf_counter()
+        ll = gt.vecchia_likelihood(z, spec, GEN_COVPARMS, NUGGET,
+                                   device="cuda", dtype=dt)
+        first_s = time.perf_counter() - t0
+        fn = gt.loglik_fn(spec, device="cuda", dtype=dt)
+        fn_aux = gt.loglik_fn(spec, device="cuda", dtype=dt, with_aux=True)
+        zt = torch.as_tensor(z, dtype=dt, device="cuda")
+        evals = []
+        for _ in range(5):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            v, aux = fn_aux(zt, GEN_COVPARMS, NUGGET)
+            v = float(v)
+            evals.append((time.perf_counter() - t0) * 1e3)
+        dropped = int(aux["n_dropped_rows"])
+        t0 = time.perf_counter()
+        first = value_grad(fn, zt, NUGGET, GEN_COVPARMS)
+        first_vg_s = time.perf_counter() - t0
+        times = []
+        for _ in range(5):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = value_grad(fn, zt, NUGGET, GEN_COVPARMS)
+            times.append((time.perf_counter() - t0) * 1e3)
+        # a dropped row is a constant of the value (its gradient is 0); at
+        # the default size none may drop, at n=1e6 the count is reported
+        if not (np.isfinite(ll) and np.all(np.isfinite(first[1]))
+                and np.isfinite(float(first[2]))) or (dropped and not big):
+            raise AssertionError(f"general {dt}: value or gradient not "
+                                 f"finite, or {dropped} rows dropped")
+        if abs(v - ll) > 1e-6 * abs(ll) or np.abs(out[1] - first[1]).max() \
+                > 1e-6 * np.abs(first[1]).max():
+            raise AssertionError(f"general {dt}: not repeatable")
+        res[name] = dict(loglik=ll, first_s=first_s,
+                         eval_ms=statistics.median(evals),
+                         first_value_grad_s=first_vg_s,
+                         value_grad_ms=statistics.median(times), grad=first,
+                         dropped_rows=dropped)
+        log(f"  cuda {name}: loglik {ll!r}, dcovparms {first[1]}, dnugget "
+            f"{float(first[2])!r}; rows dropped (not SPD) {dropped}")
+        log(f"  cuda {name}: first eval {first_s:.2f} s, median eval "
+            f"{res[name]['eval_ms']:.2f} ms; first value+grad "
+            f"{first_vg_s:.2f} s, median value+grad "
+            f"{res[name]['value_grad_ms']:.2f} ms (5 each)")
+    # the counts and the peak of the smoothness-0.8 runs alone: what follows
+    # launches the same kernels
+    launches = {k.__name__: k.launches for k in counters}
+    peak = torch.cuda.max_memory_allocated()
+    log(f"  launches during the smoothness-0.8 runs: {launches}")
+    log(f"  peak device memory: {peak / 2**30:.3f} GiB")
+    if min(launches.values()) <= 0:
+        raise AssertionError(f"a kernel of the general path never launched: "
+                             f"{launches}")
+
+    build_ms, build_vjp_ms = cov_layer_ms(spec, torch.float32)
+    res["cov_build_ms"], res["cov_build_vjp_ms"] = build_ms, build_vjp_ms
+    log(f"  float32 log K_nu covariance layer alone: build {build_ms:.2f} ms "
+        f"({100 * build_ms / res['float32']['eval_ms']:.1f} % of an eval), "
+        f"build+VJP {build_vjp_ms:.2f} ms")
+    res["users_range"] = users_range_check(spec, z, big)
+
+    if not big:
+        ll = gt.vecchia_likelihood(z, spec, (0.8, 0.3, 0.4, 0.2), NUGGET,
+                                   "esqe", device="cuda", dtype=torch.float32)
+        if not np.isfinite(ll):
+            raise AssertionError("esqe: log-likelihood not finite")
+        res["esqe_loglik_f32"] = ll
+        log(f"  esqe (0.8, 0.3, 0.4, 0.2) f32: loglik {ll!r}")
+        zt = torch.as_tensor(z, dtype=torch.float64, device="cuda")
+        builtin, callable_ = (value_grad(gt.loglik_fn(spec, cm, device="cuda"),
+                                         zt, NUGGET)
+                              for cm in ("matern", _exp05))
+        scale = max(np.abs(builtin[1][:2]).max(), abs(float(builtin[2])))
+        e_val = abs(callable_[0] - builtin[0]) / abs(builtin[0])
+        e_grad = max(np.abs(callable_[1][:2] - builtin[1][:2]).max(),
+                     abs(float(callable_[2]) - float(builtin[2]))) / scale
+        res["cross_path"] = dict(value_rel=e_val, grad_rel=e_grad)
+        log(f"  nu=0.5 callable (H8) vs built-in matern (H1), f64: value "
+            f"{e_val:.3e}, gradient {e_grad:.3e} of |g|max (tol "
+            f"{CROSS_REL:g})")
+        if not (e_val <= CROSS_REL and e_grad <= CROSS_REL):
+            raise AssertionError("the H8 path disagrees with the H1 path")
+    if big:
+        return res, launches, peak
+
+    fn = gt.loglik_fn(spec, device="cpu", dtype=torch.float64)
+    t0 = time.perf_counter()
+    cpu = value_grad(fn, torch.as_tensor(z, dtype=torch.float64), NUGGET,
+                     GEN_COVPARMS)
+    log(f"  cpu float64 plain path: loglik {cpu[0]!r}, value+grad "
+        f"{time.perf_counter() - t0:.1f} s")
+    g64, g32 = res["float64"], res["float32"]
+    pair = slice(0, 2)
+    scale = max(np.abs(cpu[1][pair]).max(), abs(float(cpu[2])))
+    err = dict(
+        value64=abs(g64["loglik"] - cpu[0]) / abs(cpu[0]),
+        grad64=max(np.abs(g64["grad"][1][pair] - cpu[1][pair]).max(),
+                   abs(float(g64["grad"][2]) - float(cpu[2]))) / scale,
+        dnu64=abs(g64["grad"][1][2] - cpu[1][2]) / abs(cpu[1][2]),
+        value32=abs(g32["loglik"] - g64["loglik"]) / abs(g64["loglik"]),
+        pair32=np.abs(g32["grad"][1][pair] - g64["grad"][1][pair]).max()
+        / np.abs(g64["grad"][1][pair]).max(),
+        dnu32=abs(g32["grad"][1][2] - g64["grad"][1][2])
+        / abs(g64["grad"][1][2]),
+        nug32=abs(float(g32["grad"][2]) - float(g64["grad"][2]))
+        / abs(float(g64["grad"][2])))
+    tol = dict(value64=GEN_F64_REL, grad64=GEN_F64_REL, dnu64=GEN_DNU_F64_REL,
+               value32=SLICE_F32_REL, pair32=GEN_F32_PAIR, dnu32=GEN_F32_DNU,
+               nug32=GEN_F32_NUG)
+    res["errors"] = err
+    log("  general vs reference: " + ", ".join(
+        f"{k} {v:.3e} (tol {tol[k]:g})" for k, v in err.items()))
+    if any(err[k] > tol[k] for k in tol):
+        raise AssertionError("general phase: the card disagrees with the "
+                             "reference path")
+    return res, launches, peak
+
+
+def _obj_grad_ms(spec, z, lg, dt):
+    """Median ms of one estimation objective+gradient on the card."""
+    from gpvecchia_torch.fit import mle
+    obj = mle.neg_loglik_fn(spec, z, len(lg), device="cuda", dtype=dt)
+
+    def once():
+        lgt = torch.tensor(lg, dtype=torch.float64, requires_grad=True)
+        v = obj(lgt)
+        (g,) = torch.autograd.grad(v, lgt)
+        return float(v.detach()), g.numpy()
+
+    once()
+    times = []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        once()
+        times.append((time.perf_counter() - t0) * 1e3)
+    return statistics.median(times)
+
+
+def estimate_phase(locs, z, m, big, seed):
+    """L-BFGS-B estimation on the card (f32) on this run's data plus a
+    constant trend; at the default size also a dense-GP check at n=2000:
+    the card's estimate (f64) reaches the CPU's log-likelihood."""
+    import gpvecchia_torch as gt
+    from gpvecchia_torch.fit import mle
+    from scipy.spatial.distance import cdist
+    res = {}
+    max_iter = 3 if big else 5
+    t0 = time.perf_counter()
+    est = gt.vecchia_estimate(z + 1.0, locs, m=m, max_iter=max_iter,
+                              output_level=0, device="cuda",
+                              dtype=torch.float32)
+    total_s = time.perf_counter() - t0
+    lg0 = np.log(mle._theta_ini(est["z"], locs))
+    step_ms = _obj_grad_ms(est["spec"], est["z"], lg0, torch.float32)
+    if not (np.isfinite(est["loglik"]) and np.isfinite(est["theta_hat"]).all()):
+        raise AssertionError("estimate: not finite")
+    res["run"] = dict(n_iter=est["n_iter"], theta_hat=est["theta_hat"].tolist(),
+                      loglik=est["loglik"], total_s=total_s,
+                      obj_grad_ms=step_ms, max_iter=max_iter)
+    log(f"  lbfgs f32 (max_iter {max_iter}): n_iter {est['n_iter']}, "
+        f"converged {est['converged']}, theta_hat {est['theta_hat']}, "
+        f"loglik {est['loglik']!r}, "
+        f"{total_s:.1f} s in all (spec included); one objective+gradient "
+        f"{step_ms:.2f} ms")
+    if big:
+        return res
+    rng = np.random.default_rng(seed + 1)
+    n2 = 2000
+    locs2 = rng.uniform(size=(n2, 2))
+    K = 2.0 * np.exp(-cdist(locs2, locs2) / 0.2) + 0.2 * np.eye(n2)
+    y = np.linalg.cholesky(K) @ rng.normal(size=n2) + 1.0
+    ests = {dev: gt.vecchia_estimate(y, locs2, m=10, max_iter=10,
+                                     output_level=0, device=dev)
+            for dev in ("cuda", "cpu")}
+    rel = abs(ests["cuda"]["loglik"] - ests["cpu"]["loglik"]) / abs(
+        ests["cpu"]["loglik"])
+    res["dense_n2000"] = dict(
+        cuda=dict(theta_hat=ests["cuda"]["theta_hat"].tolist(),
+                  loglik=ests["cuda"]["loglik"]),
+        cpu=dict(theta_hat=ests["cpu"]["theta_hat"].tolist(),
+                 loglik=ests["cpu"]["loglik"]), rel=rel)
+    log(f"  dense GP n={n2}, f64, lbfgs 10: cuda loglik "
+        f"{ests['cuda']['loglik']!r} theta {ests['cuda']['theta_hat']}; cpu "
+        f"loglik {ests['cpu']['loglik']!r}; rel {rel:.3e} (tol {EST_REL:g})")
+    if rel > EST_REL:
+        raise AssertionError("estimate: the card's estimate disagrees with "
+                             "the CPU's")
+    return res
 
 
 def _jsonable(r, summary=False):
@@ -633,33 +1197,46 @@ def main():
                                  "reference path")
 
     log("gradient phase:")
-    grad, grad_launches, grad_peak = grad_phase(
-        spec, z, big, counters + bwd_counters, (MS.solve_e0_bwd,))
+    grad, grad_launches, grad_peak = grad_phase(spec, z, big,
+                                                counters + bwd_counters)
+
+    log("general-covariance phase (smoothness 0.8):")
+    gen_counters = (MS.solve_e0, MS.solve_e0_bwd) + counters[1:] \
+        + bwd_counters[1:]
+    gen, gen_launches, gen_peak = general_phase(spec, z, big, gen_counters)
+
+    log("estimation phase:")
+    est = estimate_phase(locs, z, args.m, big, args.seed)
 
     if args.profile:
         profile_eval(spec, z, grad=False)
         profile_eval(spec, z, grad=True)
+        profile_eval(spec, z, grad=True, covparms=GEN_COVPARMS)
 
     ms_cu = "gpvecchia_torch/csrc/matern_solve.cu"
     fr_cu = "gpvecchia_torch/csrc/frontal.cu"
+    crout = "gpvecchia_tpu/kernels/pallas_crout.py"
     src = {"matern_solve_e0": ms_cu, "matern_solve_e0_bwd": ms_cu,
-           "solve_e0_bwd": ms_cu}
+           "solve_e0": ms_cu, "solve_e0_bwd": ms_cu}
     replaces = {
-        "matern_solve_e0": "gpvecchia_tpu/kernels/pallas_crout.py:268",
-        "matern_solve_e0_bwd": "gpvecchia_tpu/kernels/pallas_crout.py:155",
-        "solve_e0_bwd": "gpvecchia_tpu/kernels/pallas_crout.py:155",
+        "matern_solve_e0": f"{crout}:268",
+        "matern_solve_e0_bwd": f"{crout}:155",
+        "solve_e0": f"{crout}:135",
+        "solve_e0_bwd": f"{crout}:155",
         "leaf_assemble": "gpvecchia_tpu/linalg/pallas_level.py:594",
         "extend_add": "gpvecchia_tpu/linalg/pallas_level.py:344",
         "front_factor": "gpvecchia_tpu/linalg/pallas_frontal.py:180",
         "extend_add_bwd": "gpvecchia_tpu/linalg/pallas_eadd.py:117",
         "leaf_assemble_bwd": "gpvecchia_tpu/linalg/pallas_level.py:594"}
-    # launches: the forward kernels' count from the slice phase, the
-    # backward kernels' from the gradient phase; solve_e0_bwd is not on
-    # the likelihood's path (the general-smoothness path needs it), so its
-    # gradient-phase count is read but may be 0
+    # launches: each kernel's count on the path it serves, with the counts
+    # set to 0 just before that path ran: H1-H4 from the slice phase,
+    # H5-H7 from the gradient phase, H8 and solve_e0_bwd from the
+    # general-covariance phase's smoothness-0.8 runs
     path_launches = dict(launches,
                          **{k.__name__: grad_launches[k.__name__]
-                            for k in bwd_counters + (MS.solve_e0_bwd,)})
+                            for k in bwd_counters},
+                         **{k.__name__: gen_launches[k.__name__]
+                            for k in (MS.solve_e0, MS.solve_e0_bwd)})
     kernels = []
     for name, chk in checks.items():
         # f32 (the production precision) at the main path's shape
@@ -670,14 +1247,24 @@ def main():
                             replaces=replaces[name],
                             launches=path_launches[name],
                             max_abs_err=row["max_abs_err"], ms=row["ms"],
-                            plain_ms=row["plain_ms"]))
+                            plain_ms=row["plain_ms"],
+                            bound_ms=row["bound_ms"],
+                            bound_by=row["bound_by"],
+                            library_ms=row["library_ms"]))
     grad_json = {k: dict(v, scalar=_jsonable(v["scalar"]),
                          vector=_jsonable(v["vector"], summary=True))
                  for k, v in grad.items()}
-    print(json.dumps({"slice": res, "grad": grad_json, "n": args.n,
-                      "m": args.m, "spec_s": spec_s, "plan_s": plan_s,
+    gen_json = {k: (dict(v, grad=_jsonable(v["grad"]))
+                    if isinstance(v, dict) and "grad" in v else v)
+                for k, v in gen.items()}
+    print(json.dumps({"slice": res, "grad": grad_json, "general": gen_json,
+                      "estimate": est, "n": args.n, "m": args.m,
+                      "spec_s": spec_s, "plan_s": plan_s,
                       "peak_bytes": peak, "grad_peak_bytes": grad_peak,
-                      "grad_launches": grad_launches, "smi": smi}))
+                      "general_peak_bytes": gen_peak,
+                      "grad_launches": grad_launches,
+                      "general_launches": gen_launches, "smi": smi},
+                     default=float))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,8 +1,9 @@
 """Build, load and call the port's CUDA kernels.
 
-All ``*.cu`` files of this directory are compiled by one ``nvcc`` call into
-one shared library with a plain C interface (no PyTorch headers, so the
-build takes seconds), loaded with ctypes.  The library lands in the port's
+All ``*.cu`` files of this directory are compiled, one ``nvcc`` process per
+file run in parallel, and linked into one shared library with a plain C
+interface (no PyTorch headers, so the build takes seconds), loaded with
+ctypes.  The library lands in the port's
 build directory under a name keyed by a hash of the sources and the flags.
 Nothing is built when the package is imported: the first CUDA launch
 builds.  A missing ``nvcc``, a failed build or a failed launch raises; there
@@ -35,6 +36,7 @@ _SIGNATURES = {
                             _I, _P],
     "gpv_matern_solve_e0_bwd": [_P, _I, _P, _P, _P, _P, _I, _I, _D, _D, _I,
                                 _P, _P, _P, _P, _I, _P],
+    "gpv_solve_e0": [_P, _I, _I, _P, _I, _P],
     "gpv_solve_e0_bwd": [_P, _I, _I, _P, _P, _P, _I, _P],
     "gpv_leaf_assemble": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _P, _P],
     "gpv_extend_add": [_P, _LL, _LL, _LL, _P, _P, _P, _I, _I, _P, _P],
@@ -74,21 +76,35 @@ def nvcc() -> str:
 
 
 def _build(out: Path) -> None:
+    """One ``nvcc -c`` per source, all started together, then one link."""
     global build_log
     out.parent.mkdir(parents=True, exist_ok=True)
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=out.parent)
-    os.close(fd)
-    cu = [str(s) for s in sources()]
-    try:
-        res = subprocess.run([nvcc(), *FLAGS, "-Xptxas", "-v", "-o", tmp, *cu],
+    compile_flags = [f for f in FLAGS if f != "-shared"]
+    with tempfile.TemporaryDirectory(dir=out.parent) as tmp:
+        procs = []
+        for src in sources():
+            obj = str(Path(tmp) / (src.stem + ".o"))
+            procs.append((obj, subprocess.Popen(
+                [nvcc(), *compile_flags, "-Xptxas", "-v", "-c", "-o", obj,
+                 str(src)], stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                text=True)))
+        logs = []
+        for obj, proc in procs:
+            _, err = proc.communicate()
+            logs.append(err)
+            if proc.returncode != 0:
+                for _, other in procs:
+                    other.kill()
+                    other.wait()
+                raise RuntimeError("nvcc failed:\n" + err[-8000:])
+        lib = str(Path(tmp) / out.name)
+        res = subprocess.run([nvcc(), *FLAGS, "-o", lib,
+                              *(obj for obj, _ in procs)],
                              capture_output=True, text=True)
         if res.returncode != 0:
-            raise RuntimeError("nvcc failed:\n" + res.stderr[-8000:])
-        os.replace(tmp, out)
-    finally:
-        if os.path.exists(tmp):
-            os.unlink(tmp)
-    build_log = res.stderr
+            raise RuntimeError("nvcc link failed:\n" + res.stderr[-8000:])
+        os.replace(lib, out)
+    build_log = "".join(logs)
 
 
 def get_lib():

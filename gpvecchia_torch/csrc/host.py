@@ -1,11 +1,13 @@
 """Native host ops (ordering, neighbor search, SGV selection) via ctypes.
 
-The C++ source is the JAX package's ``gpvecchia_tpu/csrc/hostops.cpp``, read
-by path so the host C++ has one source of truth; nothing of that package is
-imported.  The library is compiled with ``g++ -O3 -shared -fPIC`` into the
-port's build directory under a name keyed by a hash of the source and the
-flags (never by mtime), so a stale or foreign binary is never loaded and the
-JAX package's tracked ``libhostops.so`` is neither read nor rewritten.
+The C++ source is the port's own ``hostops.cpp`` beside this module, a
+byte-identical copy of the JAX package's ``gpvecchia_tpu/csrc/hostops.cpp``
+(``tests/test_torch_host.py`` holds the two equal); nothing of that package
+is read or imported.  The library is compiled with ``g++ -O3 -shared -fPIC``
+into the port's build directory under a name keyed by a hash of the source
+and the flags (never by mtime), so a stale or foreign binary is never loaded
+and the JAX package's tracked ``libhostops.so`` is neither read nor
+rewritten.
 
 When no C++ toolchain is available, callers fall back to the NumPy
 implementations in ``gpvecchia_torch.geometry`` (exact, but hours at
@@ -24,8 +26,7 @@ from pathlib import Path
 
 import numpy as np
 
-SOURCE = (Path(__file__).resolve().parents[2] / "gpvecchia_tpu" / "csrc"
-          / "hostops.cpp")
+SOURCE = Path(__file__).resolve().parent / "hostops.cpp"
 BUILD_DIR = Path(__file__).resolve().parents[1] / "_build"
 _FLAGS = ["-O3", "-shared", "-fPIC"]
 

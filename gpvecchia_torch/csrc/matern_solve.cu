@@ -46,11 +46,21 @@
 // Bound like H1: about twice its work (the refactor plus one more solve and
 // the pair loop).
 //
-// solve_e0_bwd is K2 itself, one to one: packed Cp (n, P) point-major
-// (row i of the upper triangle at [off_i, off_i + F - i)), x and xbar (n, F)
-// in, K2's packed gbar (n, P) out.  Off the likelihood's path (the general
-// smoothness path that needs it is not ported yet); it shares the factor
-// and solve routines.
+// H8 solve_e0 replaces K3, `_solve_e0_kernel` (pallas_call at
+// pallas_crout.py:140, `_solve_e0_impl`, entry `packed_solve_e0`): the
+// same factor and solve as H1 on a packed covariance that the caller built
+// (general smoothness, esqe, user covariances, a full covariance matrix).
+// Packed Cp (n, P) point-major, P = F(F+1)/2, row i of the upper triangle
+// at [off_i, off_i + F - i), which is column i of the lower triangle, so
+// the unpack is F contiguous slab reads.  One warp per point, the point's
+// F x F matrix in shared memory (F*F + 2F values a warp).  What bounds it:
+// like H1, the serial pivot chain of each warp, not memory: a point reads
+// P values (3.4 KB at F=41 in f32) and does ~F^3/3 FMAs.  Non-SPD rows give
+// NaN/Inf in their own row only.
+//
+// solve_e0_bwd is K2 itself, one to one: packed Cp (n, P), x and xbar
+// (n, F) in, K2's packed gbar (n, P) out: H8's backward.  It shares the
+// factor and solve routines.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -252,6 +262,36 @@ __global__ void matern_solve_e0_bwd_kernel(
   }
 }
 
+// packed row j of the upper triangle is column j of the lower one
+template <typename T>
+__device__ void unpack_lower(const T* __restrict__ cp, T* C, int F,
+                             int lane) {
+  for (int j = 0, off = 0; j < F; off += F - j, ++j)
+    for (int i = j + lane; i < F; i += 32) C[j * F + i] = cp[off + i - j];
+  __syncwarp();
+}
+
+template <typename T>
+__global__ void solve_e0_kernel(const T* __restrict__ Cp, int n, int F,
+                                T* __restrict__ x) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  T* smem = reinterpret_cast<T*>(smem_raw);
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  T* C = smem + (size_t)warp * (F * F + 2 * F);
+  T* dg = C + F * F;                       // 1/L[k][k]
+  T* b = dg + F;                           // e0, then the solution
+  const long p = (long)blockIdx.x * (blockDim.x >> 5) + warp;
+  if (p >= n) return;                      // whole warp leaves together
+  const long P = (long)F * (F + 1) / 2;
+
+  for (int i = lane; i < F; i += 32) b[i] = (i == 0) ? T(1) : T(0);
+  unpack_lower(Cp + p * P, C, F, lane);
+  chol_inplace(C, dg, F, lane);
+  solve_inplace(C, dg, b, F, lane);
+  for (int i = lane; i < F; i += 32) x[p * F + i] = b[i];
+}
+
 template <typename T>
 __global__ void solve_e0_bwd_kernel(const T* __restrict__ Cp, int n, int F,
                                     const T* __restrict__ x,
@@ -275,10 +315,7 @@ __global__ void solve_e0_bwd_kernel(const T* __restrict__ Cp, int n, int F,
     w[i] = xbar[p * F + i];
     xs[i] = x[p * F + i];
   }
-  // packed row j of the upper triangle is column j of the lower one
-  for (int j = 0, off = 0; j < F; off += F - j, ++j)
-    for (int i = j + lane; i < F; i += 32) C[j * F + i] = cp[off + i - j];
-  __syncwarp();
+  unpack_lower(cp, C, F, lane);
   chol_inplace(C, dg, F, lane);
   solve_inplace(C, dg, w, F, lane);
   for (int i = 0, off = 0; i < F; off += F - i, ++i)
@@ -317,6 +354,17 @@ int launch_matern_solve_e0_bwd(const T* locs, int d, const int* NN,
       <<<blocks, 32 * warps_per_block, smem, stream>>>(
           locs, d, NN, valid, resp, nug_point, n, F, (T)sig2, (T)rho, nu_idx,
           x, xbar, dpar, dslot);
+  return (int)cudaGetLastError();
+}
+
+template <typename T>
+int launch_solve_e0(const T* Cp, int n, int F, T* x, int warps_per_block,
+                    cudaStream_t stream) {
+  if (n == 0) return 0;
+  const size_t smem = (size_t)warps_per_block * (F * F + 2 * F) * sizeof(T);
+  const int blocks = (n + warps_per_block - 1) / warps_per_block;
+  solve_e0_kernel<T><<<blocks, 32 * warps_per_block, smem, stream>>>(Cp, n,
+                                                                     F, x);
   return (int)cudaGetLastError();
 }
 
@@ -377,6 +425,18 @@ int gpv_matern_solve_e0_bwd_f64(const double* locs, int d, const int* NN,
   return launch_matern_solve_e0_bwd<double>(
       locs, d, NN, valid, resp, nug_point, n, F, sig2, rho, nu_idx, x, xbar,
       dpar, dslot, warps_per_block, (cudaStream_t)stream);
+}
+
+int gpv_solve_e0_f32(const float* Cp, int n, int F, float* x,
+                     int warps_per_block, void* stream) {
+  return launch_solve_e0<float>(Cp, n, F, x, warps_per_block,
+                                (cudaStream_t)stream);
+}
+
+int gpv_solve_e0_f64(const double* Cp, int n, int F, double* x,
+                     int warps_per_block, void* stream) {
+  return launch_solve_e0<double>(Cp, n, F, x, warps_per_block,
+                                 (cudaStream_t)stream);
 }
 
 int gpv_solve_e0_bwd_f32(const float* Cp, int n, int F, const float* x,

@@ -7,18 +7,28 @@ numerator comes from the U columns; the denominator from the multifrontal
 factor of W = U_y U_y^T + D, whose RHS z2 = U_y z1 rides the tree as an
 augmented row (``linalg/multifrontal.py``).  Other modes (obspred, the zy
 family, IC0) raise ``NotImplementedError``.
+
+The covariance model is any the JAX package takes (``_dispatch_covmodel``):
+'matern' (closed-form smoothness on H1, any other on the packed path and
+H8), 'esqe', a user callable of torch tensors over distances or location
+pairs, or a full (n_all, n_all) covariance matrix over the ordered points.
+The selected (n_all, m+1) matrix layout raises ``NotImplementedError``.
+
+The entry points run on the card (``device="cuda"``) unless the caller asks
+for another device; without a visible CUDA device they raise.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import hashlib
 import math
 import warnings
 
 import numpy as np
 import torch
 
-from ..kernels.covariance import check_covmodel
+from ..kernels.covariance import make_kernel_fn
 from ..kernels.u_entries import u_entries
 from ..linalg.multifrontal import mf_device_arrays, mf_factor
 from ..plan import get_mf_plan, get_plan
@@ -83,7 +93,8 @@ def _mf_denominator(dev, col, z1L, zord, nug_ord):
     return mf_factor(dev["mf"], u_elem, dvec, z1L, rhs_vert)
 
 
-def _loglik_core(plan, dev, pack, covparms, nuggets, dtype, device):
+def _loglik_core(plan, dev, pack, covparms, nuggets, dtype, device,
+                 kernel_fn=None, covmat=None):
     if not torch.is_tensor(covparms):
         covparms = torch.as_tensor(np.array(covparms, dtype=np.float64))
     covparms = covparms.to(dtype)
@@ -102,7 +113,7 @@ def _loglik_core(plan, dev, pack, covparms, nuggets, dtype, device):
     nug_point = nug_point.index_put((dev["obs_points"],), nug_ord)
 
     col, bad = u_entries(dev["locs"], dev["NN"], dev["valid"], dev["cond"],
-                         nug_point, covparms)
+                         nug_point, covparms, kernel_fn, covmat)
 
     # z1 over U columns: regression columns gather the values of their
     # known-conditioned neighbors (response-conditioned, or exact latents)
@@ -175,22 +186,78 @@ def _check_supported(plan):
             "the zy family and IC0: ROADMAP queue 1, per-entry V path)")
 
 
-def loglik_fn(spec, covmodel="matern", *, device="cpu",
+def resolve_device(device) -> torch.device:
+    """``device`` as a torch.device; a CUDA device must be visible."""
+    device = torch.device(device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            "gpvecchia_torch runs on the card by default, and no CUDA device "
+            "is visible; pass device='cpu' to run on the CPU")
+    return device
+
+
+def _is_matrix(covmodel) -> bool:
+    return isinstance(covmodel, np.ndarray) or (
+        hasattr(covmodel, "shape") and not callable(covmodel))
+
+
+def _as_array(covmodel) -> np.ndarray:
+    if torch.is_tensor(covmodel):
+        covmodel = covmodel.detach().cpu().numpy()
+    return np.asarray(covmodel, np.float64)
+
+
+def _dispatch_covmodel(spec, covmodel, device, dtype):
+    """(kernel_fn, covmat): a kernel evaluator, or a full covariance matrix
+    on ``device``."""
+    if not _is_matrix(covmodel):
+        return make_kernel_fn(covmodel), None
+    arr = _as_array(covmodel)
+    n_all, mp1 = spec.NNarray.shape
+    if arr.shape == (n_all, n_all):
+        return None, torch.as_tensor(arr).to(device, dtype)
+    if arr.shape == (n_all, mp1):
+        raise NotImplementedError(
+            "the selected (n_all, m+1) covariance-matrix layout is not ported "
+            "to gpvecchia_torch: it needs MRA's hierarchical conditioning "
+            "(ROADMAP queue 1, item 7)")
+    raise ValueError(
+        f"covariance matrix shape {arr.shape} matches neither the full "
+        f"({n_all},{n_all}) nor the selected ({n_all},{mp1}) layout")
+
+
+def _covmodel_key(covmodel):
+    """Cache key of a covariance model: a name as it is, a callable by
+    identity, a matrix by identity and a digest of its whole content (its
+    printed form abbreviates large matrices, so two matrices can print
+    alike)."""
+    if isinstance(covmodel, str):
+        return ("name", covmodel)
+    if not _is_matrix(covmodel):
+        return ("callable", covmodel)
+    arr = np.ascontiguousarray(_as_array(covmodel))
+    digest = hashlib.blake2b(arr.tobytes(), digest_size=16).hexdigest()
+    return ("matrix", id(covmodel), arr.shape, digest)
+
+
+def loglik_fn(spec, covmodel="matern", *, device="cuda",
               dtype=torch.float64, with_aux=False):
     """loglik(z, covparms, nuggets) -> 0-dim tensor on ``device`` (cached).
 
     with_aux=True returns (loglik, {"n_dropped_rows": count}).  The
     parameter-free data preparation is cached per z: a torch tensor is
     keyed on (id, data_ptr, version), so an in-place update invalidates
-    it; a numpy array on a content fingerprint.
+    it; a numpy array on a content fingerprint.  The result is
+    differentiable in covparms and nuggets (torch.autograd), whose
+    gradients come back on their own devices and dtypes.
     """
-    check_covmodel(covmodel)
-    device = torch.device(device)
+    device = resolve_device(device)
     plan = get_plan(spec)
     _check_supported(plan)
-    key = ("loglik", str(device), dtype, with_aux)
+    key = ("loglik", _covmodel_key(covmodel), str(device), dtype, with_aux)
     if key in plan.cache:
         return plan.cache[key]
+    kernel_fn, covmat = _dispatch_covmodel(spec, covmodel, device, dtype)
     dev = _device_arrays(plan, device, dtype)
     zcache = {}
 
@@ -210,7 +277,7 @@ def loglik_fn(spec, covmodel="matern", *, device="cpu",
             # ref pins z so that its id stays unique while it is the key
             zcache.update(key=zk, ref=z, pack=_prepare_pack(dev, zt))
         ll, aux = _loglik_core(plan, dev, zcache["pack"], covparms, nuggets,
-                               dtype, device)
+                               dtype, device, kernel_fn, covmat)
         return (ll, aux) if with_aux else ll
 
     plan.cache[key] = fn
@@ -218,12 +285,14 @@ def loglik_fn(spec, covmodel="matern", *, device="cpu",
 
 
 def vecchia_likelihood(z, spec, covparms, nuggets, covmodel="matern", *,
-                       device="cpu", dtype=torch.float64):
+                       device="cuda", dtype=torch.float64):
     """Gaussian Vecchia log-likelihood (float).
 
     ``z`` in original observation order, ``nuggets`` scalar or
     per-observation vector (GPvecchia R/vecchia_likelihood.R:14-27).
+    Runs on the card unless ``device`` says otherwise.
     """
+    device = resolve_device(device)
     if spec.cond_yz in ("zy", "RVP", "LK"):
         warnings.warn("cond.yz='zy' will produce a poor likelihood "
                       "approximation. Use 'SGV' instead.")

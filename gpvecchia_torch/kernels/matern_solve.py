@@ -1,14 +1,16 @@
 """H1 ``matern_solve_e0``: per point, x = C^{-1} e0 for the closed-form
 Matern covariance C of its conditioning set; H5 ``matern_solve_e0_bwd``, its
-backward in (covparms, nuggets); and ``solve_e0_bwd``, the same backward on a
-given packed covariance.
+backward in (covparms, nuggets); H8 ``solve_e0``, the same solve on a given
+packed covariance; and ``solve_e0_bwd``, H8's backward.
 
 H1 replaces the TPU kernel ``gpvecchia_tpu/kernels/pallas_crout.py``
 ``_fused_kernel`` (``pallas_call`` at :268, entry ``fused_matern_solve``).
 H5 replaces K2, ``_solve_e0_bwd_kernel`` (``pallas_call`` at :155,
 ``_solve_e0_bwd_impl``), fused with the covariance rebuild ``_rebuild_cp``
 and the Matern VJP that the fused solver's backward (:302-356) runs around
-it.  ``solve_e0_bwd`` is K2 one to one.  The CUDA kernels are
+it.  H8 replaces K3, ``_solve_e0_kernel`` (``pallas_call`` at :140,
+``_solve_e0_impl``, entry ``packed_solve_e0``).  ``solve_e0_bwd`` is K2 one
+to one.  The CUDA kernels are
 ``csrc/matern_solve.cu``: one warp per point with the point's matrix in
 shared memory; they are bound by the serial pivot chain of each warp, not by
 memory (see the source note there).  Each ``*_plain`` function is the plain
@@ -27,10 +29,11 @@ import torch
 from torch.autograd.function import once_differentiable
 
 from ..csrc import cuda
-from .covariance import matern, matern_dgds, nu_index, safe_dist
+from .covariance import GENERAL, matern, matern_dgds, nu_index, safe_dist
 
 __all__ = ["matern_solve_e0", "matern_solve_e0_plain", "matern_solve_e0_bwd",
-           "matern_solve_e0_bwd_plain", "solve_e0_bwd", "solve_e0_bwd_plain",
+           "matern_solve_e0_bwd_plain", "solve_e0", "solve_e0_plain",
+           "packed_solve_e0", "solve_e0_bwd", "solve_e0_bwd_plain",
            "max_neighbors"]
 
 _SMEM_PER_BLOCK = 48 * 1024     # static-launch shared-memory bound
@@ -169,9 +172,21 @@ def _check(locs, NN, valid, resp, nug_point, *vecs):
         raise ValueError("matern_solve_e0: shape/dtype mismatch")
 
 
+def _zero_rows(xbar):
+    """(n, 1) mask of the points whose cotangent row is all zero: their
+    contribution is exactly zero, also where their matrix is not SPD and the
+    kernel's refactor gives NaN (a row the likelihood dropped)."""
+    return torch.all(xbar == 0, dim=1, keepdim=True)
+
+
 def _params(covparms):
     cp = [float(c) for c in covparms.detach().cpu().tolist()]
-    return cp[0], cp[1], nu_index(cp[2])
+    idx = nu_index(cp[2])
+    if idx == GENERAL:
+        raise ValueError(f"matern_solve_e0: smoothness {cp[2]} has no "
+                         "closed form (0.5, 1.5, 2.5); general smoothness "
+                         "takes build_cov_packed + solve_e0")
+    return cp[0], cp[1], idx
 
 
 def _device(name, t):
@@ -222,18 +237,23 @@ def _launch_bwd(locs, NN, valid, resp, nug_point, covparms, x, xbar):
 
 def matern_solve_e0_bwd(locs, NN, valid, resp, nug_point, covparms, x, xbar):
     """(dcovparms, dnug_point): the VJP of ``matern_solve_e0`` at its
-    solution x for the cotangent xbar (both (n, F)).  dcovparms has
-    covparms' shape, device and dtype (d/dnu = 0); dnug_point has
-    nug_point's.  CPU tensors take the plain version, CUDA tensors H5."""
+    solution x for the cotangent xbar (both (n, F)); a point whose xbar is
+    0 contributes 0.  dcovparms has covparms' shape, device and dtype
+    (d/dnu = 0); dnug_point has nug_point's.  CPU tensors take the plain
+    version, CUDA tensors H5."""
     _check(locs, NN, valid, resp, nug_point, x, xbar)
     if not torch.is_tensor(covparms):
         covparms = torch.tensor(covparms, dtype=torch.float64)
+    _params(covparms)                       # raises off the closed forms
     if _device("matern_solve_e0_bwd", locs):
         dpar, dslot = _launch_bwd(locs, NN, valid, resp, nug_point, covparms,
                                   x, xbar)
     else:
         dpar, dslot = matern_solve_e0_bwd_plain(locs, NN, valid, resp,
                                                 nug_point, covparms, x, xbar)
+    zero = _zero_rows(xbar)
+    dpar = torch.where(zero, 0.0, dpar)
+    dslot = torch.where(zero, 0.0, dslot)
     dcov = torch.zeros(covparms.shape, dtype=torch.float64, device=dpar.device)
     dcov[:2] = dpar.sum(0)
     dnug = torch.zeros_like(nug_point).index_add_(
@@ -279,10 +299,94 @@ def matern_solve_e0(locs, NN, valid, resp, nug_point, covparms):
     _check(locs, NN, valid, resp, nug_point)
     if not torch.is_tensor(covparms):
         covparms = torch.tensor(covparms, dtype=torch.float64)
+    _params(covparms)                       # raises off the closed forms
     return _MaternSolveE0.apply(locs, NN, valid, resp, nug_point, covparms)
 
 
 matern_solve_e0.launches = 0
+
+
+# ------------------------- H8: K3 on a given packed covariance ----
+
+def packed_f(P: int) -> int:
+    """F with F(F+1)/2 = P; ValueError if P is no such number."""
+    F = int(round(((8 * P + 1) ** 0.5 - 1) / 2))
+    if F * (F + 1) // 2 != P:
+        raise ValueError(f"{P} is not a packed triangle size F(F+1)/2")
+    return F
+
+
+def _unpack(Cp, F):
+    """(n, F, F) with the lower triangle of each packed upper triangle (the
+    row-major order of the JAX package's packing); the rest is 0."""
+    iu, ju = torch.triu_indices(F, F, device=Cp.device)
+    C = Cp.new_zeros(Cp.shape[0], F, F)
+    C[:, ju, iu] = Cp
+    return C
+
+
+def solve_e0_plain(Cp):
+    """Plain version of H8: (n, F) solutions x = C^{-1} e0 of the packed
+    (n, P) covariances, NaN rows where C is not SPD."""
+    F = packed_f(Cp.shape[1])
+    e0 = torch.zeros(F, dtype=Cp.dtype, device=Cp.device)
+    e0[0] = 1.0
+    return _solve(_unpack(Cp, F), e0.expand(Cp.shape[0], F))
+
+
+def _launch_solve(Cp, F):
+    n = Cp.shape[0]
+    warps = _warps("solve_e0", F, 0, Cp.dtype, _FWD_VECS - 1,
+                   _max_f(0, Cp.dtype, _FWD_VECS))
+    Cp = Cp.contiguous()
+    x = torch.empty(n, F, dtype=Cp.dtype, device=Cp.device)
+    rc = cuda.entry("gpv_solve_e0", Cp.dtype)(
+        Cp.data_ptr(), n, F, x.data_ptr(), warps, cuda.stream(Cp.device))
+    cuda.check(rc, "solve_e0")
+    solve_e0.launches += 1
+    return x
+
+
+def solve_e0(Cp):
+    """H8, K3's counterpart: x (n, F) with x[p] = C_p^{-1} e0 for packed
+    covariances Cp (n, P) point-major, P = F(F+1)/2, each row the upper
+    triangle row by row.  A non-SPD C gives NaN/Inf in its own row only.
+    CPU tensors take the plain version, CUDA tensors the kernel (up to the
+    shared-memory bound of ``solve_e0_bwd``, its backward, so that a value
+    is only computed where its gradient can be).  Not differentiable: see
+    ``packed_solve_e0``."""
+    if Cp.dim() != 2 or Cp.dtype not in (torch.float32, torch.float64):
+        raise TypeError("solve_e0: Cp must be (n, P) float32 or float64")
+    F = packed_f(Cp.shape[1])
+    if _device("solve_e0", Cp):
+        return _launch_solve(Cp, F)
+    return solve_e0_plain(Cp)
+
+
+solve_e0.launches = 0
+
+
+class _PackedSolveE0(torch.autograd.Function):
+    """H8 forward, ``solve_e0_bwd`` (K2) backward: ``_make_solver`` of the
+    JAX package's ``kernels/pallas_crout.py``."""
+
+    @staticmethod
+    def forward(ctx, Cp):
+        x = solve_e0(Cp)
+        ctx.save_for_backward(Cp, x)
+        return x
+
+    @staticmethod
+    @once_differentiable
+    def backward(ctx, xbar):
+        Cp, x = ctx.saved_tensors
+        return solve_e0_bwd(Cp, x, xbar.contiguous())
+
+
+def packed_solve_e0(Cp):
+    """x = C^{-1} e0 for packed point-major covariances (n, P) -> (n, F),
+    differentiable in Cp (the backward is K2's packed cotangent)."""
+    return _PackedSolveE0.apply(Cp)
 
 
 # ------------------------------------------------- K2 one to one ----
@@ -290,11 +394,8 @@ matern_solve_e0.launches = 0
 def solve_e0_bwd_plain(Cp, x, xbar):
     """Plain version of ``solve_e0_bwd``: K2's packed cotangent (n, P)."""
     n, F = x.shape
-    # the packed upper triangle, row-major, as the JAX package packs it
     iu, ju = torch.triu_indices(F, F, device=Cp.device)
-    C = Cp.new_zeros(n, F, F)
-    C[:, ju, iu] = Cp                                       # lower triangle
-    w = _solve(C, xbar)
+    w = _solve(_unpack(Cp, F), xbar)
     g = -(w[:, iu] * x[:, ju] + w[:, ju] * x[:, iu])
     return torch.where(iu == ju, 0.5 * g, g)
 
@@ -318,16 +419,18 @@ def solve_e0_bwd(Cp, x, xbar):
 
     Cp: (n, P) packed upper triangles, point-major, P = F(F+1)/2; x, xbar:
     (n, F).  Returns gbar (n, P) with gbar[i<j] = -(w_i x_j + w_j x_i) and
-    gbar[i, i] = -w_i x_i, w = C^{-1} xbar.  CPU tensors take the plain
-    version, CUDA tensors the kernel."""
+    gbar[i, i] = -w_i x_i, w = C^{-1} xbar, and 0 in the rows whose xbar
+    is 0.  CPU tensors take the plain version, CUDA tensors the kernel."""
     n, F = x.shape
     if Cp.shape != (n, F * (F + 1) // 2) or xbar.shape != (n, F) \
             or x.dtype != Cp.dtype or xbar.dtype != Cp.dtype \
             or x.device != Cp.device or xbar.device != Cp.device:
         raise ValueError("solve_e0_bwd: shape/dtype/device mismatch")
     if _device("solve_e0_bwd", Cp):
-        return _launch_solve_bwd(Cp, x, xbar)
-    return solve_e0_bwd_plain(Cp, x, xbar)
+        g = _launch_solve_bwd(Cp, x, xbar)
+    else:
+        g = solve_e0_bwd_plain(Cp, x, xbar)
+    return torch.where(_zero_rows(xbar), 0.0, g)
 
 
 solve_e0_bwd.launches = 0

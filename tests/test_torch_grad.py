@@ -89,7 +89,7 @@ def _grads(locs, z, covparms, nug, m, cond):
         jnp.asarray(covparms, jnp.float64), jnp.asarray(nug))
     c = torch.tensor(covparms, dtype=torch.float64, requires_grad=True)
     g = torch.tensor(nug, dtype=torch.float64, requires_grad=True)
-    ll = GT.loglik_fn(spec_t)(torch.as_tensor(z), c, g)
+    ll = GT.loglik_fn(spec_t, device="cpu")(torch.as_tensor(z), c, g)
     gt = torch.autograd.grad(ll, (c, g))
     return [_np(a) for a in gt], [np.asarray(a) for a in gj]
 
@@ -168,7 +168,7 @@ def test_grad_runs_the_functions_backward(monkeypatch):
     g = torch.tensor(0.2, dtype=torch.float64, requires_grad=True)
     with warnings.catch_warnings():
         warnings.simplefilter("error")
-        ll = GT.loglik_fn(spec)(torch.as_tensor(z), c, g)
+        ll = GT.loglik_fn(spec, device="cpu")(torch.as_tensor(z), c, g)
         ll.backward()
     assert set(calls) == {"matern_solve_e0_bwd_plain", "front_factor_vjp",
                           "extend_add_bwd_plain", "leaf_assemble_bwd_plain"}
@@ -182,11 +182,12 @@ def test_grad_keeps_input_devices_and_dtypes():
     spec = GT.vecchia_specify(locs, m=6)
     c = torch.tensor([1.0, 0.3, 0.5], dtype=torch.float64, requires_grad=True)
     g = torch.full((len(z),), 0.2, dtype=torch.float64, requires_grad=True)
-    ll = GT.loglik_fn(spec, dtype=torch.float32)(torch.as_tensor(z), c, g)
+    ll = GT.loglik_fn(spec, device="cpu", dtype=torch.float32)(
+        torch.as_tensor(z), c, g)
     assert ll.dtype == torch.float32
     dc, dg = torch.autograd.grad(ll, (c, g))
     assert dc.dtype == dg.dtype == torch.float64
-    ref = GT.loglik_fn(spec)(torch.as_tensor(z), c, g)
+    ref = GT.loglik_fn(spec, device="cpu")(torch.as_tensor(z), c, g)
     rc, rg = torch.autograd.grad(ref, (c, g))
     np.testing.assert_allclose(_np(dc), _np(rc), rtol=1e-3)
     np.testing.assert_allclose(_np(dg), _np(rg), rtol=0,
@@ -194,9 +195,12 @@ def test_grad_keeps_input_devices_and_dtypes():
 
 
 def test_poisoned_rows_match_jax():
-    """A non-SPD conditioning matrix: the JAX package's gradient is NaN in
-    (sig2, rho) and at the nuggets of the poisoned rows' response
-    neighbors, and the port's must be the same, NaN for NaN."""
+    """A non-SPD conditioning matrix drops its row from the value, as in the
+    JAX package.  The port's gradient is that of the value it computes: the
+    dropped rows are constants, so it equals ``jax.grad`` over the other
+    rows alone, and it is finite.  (The JAX package's gradient is NaN in
+    (sig2, rho) and at the dropped rows' neighbors' nuggets: 0 times the
+    NaN row's derivative.)"""
     locs = np.random.default_rng(11).uniform(size=(400, 2))
     plan = get_plan(GT.vecchia_specify(locs, m=12, cond_yz="SGV"))
     nug = np.full(plan.n_all, 0.15)
@@ -204,27 +208,36 @@ def test_poisoned_rows_match_jax():
     W = np.random.default_rng(0).normal(size=plan.NN.shape)
     cp = np.array([1.0, 0.2, 0.5])
 
-    def fj(c, g):
-        col, bad = jax_u_entries(jnp.asarray(plan.locs), jnp.asarray(plan.NN),
-                                 jnp.asarray(plan.valid),
-                                 jnp.asarray(plan.cond), g, jax_matern, c)
-        return jnp.sum(jnp.where(bad[:, None], 0.0, col) * W)
+    def fj(c, g, rows):
+        col, bad = jax_u_entries(jnp.asarray(plan.locs),
+                                 jnp.asarray(plan.NN[rows]),
+                                 jnp.asarray(plan.valid[rows]),
+                                 jnp.asarray(plan.cond[rows]), g, jax_matern,
+                                 c)
+        return jnp.sum(jnp.where(bad[:, None], 0.0, col) * W[rows]), bad
 
-    ref = [np.asarray(a) for a in jax.grad(fj, argnums=(0, 1))(
-        jnp.asarray(cp), jnp.asarray(nug))]
+    _, bad_j = fj(jnp.asarray(cp), jnp.asarray(nug), slice(None))
+    good = ~np.asarray(bad_j)
+    nan_ref = [np.asarray(a) for a in jax.grad(
+        lambda c, g: fj(c, g, slice(None))[0], argnums=(0, 1))(
+            jnp.asarray(cp), jnp.asarray(nug))]
+    ref = [np.asarray(a) for a in jax.grad(
+        lambda c, g: fj(c, g, good)[0], argnums=(0, 1))(
+            jnp.asarray(cp), jnp.asarray(nug))]
     c = torch.tensor(cp, requires_grad=True)
     g = torch.tensor(nug, requires_grad=True)
     col, bad = u_entries(_t(plan.locs), _t(plan.NN), _t(plan.valid),
                          _t(plan.cond), g, c)
-    assert bad.any()
+    np.testing.assert_array_equal(bad.numpy(), ~good)
+    assert bad.any() and np.isnan(nan_ref[0]).any()
     (torch.where(bad[:, None], 0.0, col) * _t(W)).sum().backward()
     ours = [_np(c.grad), _np(g.grad)]
-    for a, b in zip(ours, ref):
-        np.testing.assert_array_equal(np.isnan(a), np.isnan(b))
-    assert np.isnan(ref[1]).any()
-    ok = ~np.isnan(ref[1])
-    np.testing.assert_allclose(ours[1][ok], ref[1][ok], rtol=0,
-                               atol=1e-10 * np.abs(ref[1][ok]).max())
+    scale = max(np.abs(r).max() for r in ref)
+    for a, b, n in zip(ours, ref, nan_ref):
+        assert np.isfinite(a).all()
+        np.testing.assert_allclose(a, b, rtol=0, atol=1e-10 * scale)
+        ok = ~np.isnan(n)
+        np.testing.assert_allclose(a[ok], n[ok], rtol=0, atol=1e-10 * scale)
 
 
 # ----------------------------------------- (b) H5 and solve_e0_bwd ----

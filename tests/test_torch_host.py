@@ -133,4 +133,12 @@ def test_host_library_builds_only_in_port_build_dir():
     assert path.parent == host.BUILD_DIR
     assert (REPO / "gpvecchia_torch") in path.parents
     assert (REPO / "gpvecchia_tpu") not in path.parents
-    assert host.SOURCE == REPO / "gpvecchia_tpu" / "csrc" / "hostops.cpp"
+    assert host.SOURCE == REPO / "gpvecchia_torch" / "csrc" / "hostops.cpp"
+
+
+def test_host_source_is_a_copy_of_the_reference():
+    """The port compiles its own copy of the host C++; it must stay
+    byte-identical to the JAX package's, so drift fails here."""
+    ours = (REPO / "gpvecchia_torch" / "csrc" / "hostops.cpp").read_bytes()
+    ref = (REPO / "gpvecchia_tpu" / "csrc" / "hostops.cpp").read_bytes()
+    assert ours == ref

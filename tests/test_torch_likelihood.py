@@ -33,7 +33,7 @@ def _data(n=150, seed=1988, covparms=(1.0, 0.3, 0.5), nug=0.2):
 
 def _both(locs, z, covparms, nug, **kw):
     ll_t = GT.vecchia_likelihood(z, GT.vecchia_specify(locs, **kw), covparms,
-                                 nug)
+                                 nug, device="cpu")
     ll_j = GJ.vecchia_likelihood(z, GJ.vecchia_specify(locs, **kw), covparms,
                                  nug)
     return ll_t, ll_j
@@ -94,7 +94,7 @@ def test_grid_50x50_m20_matches_jax():
         "locsord", "NNarray", "cond_latent", "has_latent", "has_obs", "ord",
         "ord_z", "ordering_pred", "cond_yz", "conditioning", "ic0", "n_obs",
         "n_pred")})
-    ll_t = GT.vecchia_likelihood(z, spec, (1.0, 0.1, 0.5), 0.1)
+    ll_t = GT.vecchia_likelihood(z, spec, (1.0, 0.1, 0.5), 0.1, device="cpu")
     ll_j = GJ.vecchia_likelihood(z, spec_j, (1.0, 0.1, 0.5), 0.1)
     np.testing.assert_allclose(ll_t, ll_j, rtol=REL)
 
@@ -103,7 +103,7 @@ def test_grid_50x50_m20_matches_jax():
 def test_exact_when_m_full(cond):
     locs, z, Sigma = _data(n=60)
     spec = GT.vecchia_specify(locs, m=59, cond_yz=cond)
-    ll = GT.vecchia_likelihood(z, spec, (1.0, 0.3, 0.5), 0.2)
+    ll = GT.vecchia_likelihood(z, spec, (1.0, 0.3, 0.5), 0.2, device="cpu")
     exact = multivariate_normal.logpdf(z, np.zeros(60),
                                        Sigma + 0.2 * np.eye(60))
     assert abs(ll - exact) < 1e-8
@@ -118,21 +118,26 @@ def test_golden_values(cond, want):
     locs = rng.uniform(size=(200, 2))
     z = rng.normal(size=200)
     spec = GT.vecchia_specify(locs, m=12, cond_yz=cond)
-    ll = GT.vecchia_likelihood(z, spec, (1.2, 0.25, 0.5), 0.15)
+    ll = GT.vecchia_likelihood(z, spec, (1.2, 0.25, 0.5), 0.15,
+                               device="cpu")
     np.testing.assert_allclose(ll, want, rtol=REL)
 
 
 @pytest.mark.parametrize("case", ["general_nu", "esqe", "zy"])
 def test_unported_paths_raise(case):
+    """Each covariance runs on the 'chol' path only: a general smoothness
+    on an IC0 spec, esqe on a spec with prediction points (obspred) and the
+    zy family still raise."""
     locs, z, _ = _data(n=40)
     with warnings.catch_warnings():
         warnings.simplefilter("ignore")
         if case == "general_nu":
-            spec = GT.vecchia_specify(locs, m=5)
+            spec = GT.vecchia_specify(locs, m=5, ic0=True)
             args = ((1.0, 0.3, 0.8), 0.2)
             kw = {}
         elif case == "esqe":
-            spec = GT.vecchia_specify(locs, m=5)
+            spec = GT.vecchia_specify(locs, m=5, locs_pred=locs[:4] + 0.01,
+                                      ordering_pred="obspred")
             args = ((0.8, 0.5, 0.4, 0.2), 0.2)
             kw = {"covmodel": "esqe"}
         else:
@@ -140,18 +145,19 @@ def test_unported_paths_raise(case):
             args = ((1.0, 0.3, 0.5), 0.2)
             kw = {}
         with pytest.raises(NotImplementedError):
-            GT.vecchia_likelihood(z, spec, *args, **kw)
+            GT.vecchia_likelihood(z, spec, *args, device="cpu", **kw)
 
 
 def test_zcache_follows_in_place_updates():
     locs, z, _ = _data(n=80)
     spec = GT.vecchia_specify(locs, m=8)
-    fn = GT.loglik_fn(spec)
+    fn = GT.loglik_fn(spec, device="cpu")
     zt = torch.as_tensor(z.copy())
     a = float(fn(zt, (1.0, 0.3, 0.5), 0.2))
     zt.mul_(2.0)                       # same tensor, new contents
     b = float(fn(zt, (1.0, 0.3, 0.5), 0.2))
-    c = GT.vecchia_likelihood(2.0 * z, spec, (1.0, 0.3, 0.5), 0.2)
+    c = GT.vecchia_likelihood(2.0 * z, spec, (1.0, 0.3, 0.5), 0.2,
+                              device="cpu")
     assert a != b
     np.testing.assert_allclose(b, c, rtol=1e-13)
 
@@ -159,7 +165,7 @@ def test_zcache_follows_in_place_updates():
 def test_float32_on_cpu_close_to_float64():
     locs, z, _ = _data(n=300)
     spec = GT.vecchia_specify(locs, m=10)
-    ll64 = GT.vecchia_likelihood(z, spec, (1.0, 0.3, 0.5), 0.2)
-    ll32 = GT.vecchia_likelihood(z, spec, (1.0, 0.3, 0.5), 0.2,
+    ll64 = GT.vecchia_likelihood(z, spec, (1.0, 0.3, 0.5), 0.2, device="cpu")
+    ll32 = GT.vecchia_likelihood(z, spec, (1.0, 0.3, 0.5), 0.2, device="cpu",
                                  dtype=torch.float32)
     np.testing.assert_allclose(ll32, ll64, rtol=1e-5)
