@@ -4,19 +4,25 @@
     python3 chip_smoke.py                      # n=1e5, m=20 (default)
     python3 chip_smoke.py --n 1000000 --m 40   # the north-star size, f32 only
     python3 chip_smoke.py --profile            # + torch.profiler breakdowns
+    python3 chip_smoke.py --only-h4            # H4 alone; no final "ok" line
 
 Builds the host library and the CUDA kernels from this checkout, then
 
 1. kernel phase: runs each CUDA kernel on the card at the shapes of this
    run's plan, in float64 and float32, against its plain PyTorch version on
    the same inputs, and times both with CUDA events: the forward kernels
-   H1 matern_solve_e0, H2 leaf_assemble, H3 extend_add, H4 front_factor,
-   H8 solve_e0 (on the packed smoothness-0.8 covariances of the first row
+   H1 matern_solve_e0, H2 leaf_assemble, H3 extend_add, H8 solve_e0 (on the packed smoothness-0.8 covariances of the first row
    chunk), and the backward kernels H5 matern_solve_e0_bwd (against torch
    autograd through H1's plain version), solve_e0_bwd (K2 one to one, H8's
    backward: at H8's shape and on random SPD matrices), H6 extend_add_bwd
    (writing, as on the main path, through a strided view into child
-   fronts' Schur blocks) and H7 leaf_assemble_bwd;
+   fronts' Schur blocks) and H7 leaf_assemble_bwd.  Then H4
+   front_factor, measured here only: the edge shapes of its blocked schedule (``H4_EDGE_SHAPES``, a batch whose
+   middle front is not SPD, NaN in the strict upper triangle of the
+   inputs), and H4 at every level of this run's multifrontal plan, each
+   against its plain version (cuSOLVER potrf, cuBLAS trsm and gemm: the
+   library's route), with the sum over the levels of an evaluation; the
+   leaf's row is H4's in the ``kernels`` line;
 2. slice phase: drives ``vecchia_likelihood`` / ``loglik_fn`` on an SGV spec
    of bench.py's data (rng(1988) uniform locations, z ~ N(0, 1), covparms
    (1.0, 0.2, 0.5), nugget 0.1).  At the default size the f64 value on the
@@ -53,6 +59,11 @@ could take: the larger of the bytes its inputs and outputs need over the
 HBM rate and its operations over the SIMT peak) and, where one PyTorch call
 computes the same function (H1 and H8: ``torch.linalg.solve`` on the
 conditioning matrices), that call's time.
+
+``--only-h4`` is a tool for work on H4: it builds the kernels, runs the edge
+shapes and the level phase on the fixed table of the 14 level shapes of
+n=1e6, m=40 (no spec, no plan, no other phase) and exits without the final
+device line, so that such a run is never taken for a pass.
 
 Every phase raises on failure (exit code != 0).  The last line of standard
 output is one JSON object naming the device.  Without a CUDA device, or
@@ -193,19 +204,11 @@ class KernelCheck:
             torch.cuda.synchronize()
             ok, worst = True, None
             for k, p, r, scale in zip(ks, ps, ref, scales):
-                if dt == torch.float64:
-                    err = held = (k - p).abs().max().item()
-                    tol = F64_REL_TOL * scale
-                else:
-                    if f32_rows is not None:
-                        k, p, r = k[f32_rows], p[f32_rows], r[f32_rows]
-                        scale = r.abs().max().item()
-                    err = (k - p).abs().max().item()
-                    held = (k - r).abs().max().item()
-                    tol = (F32_FACTOR * (p - r).abs().max().item()
-                           + F32_FLOOR * scale)
-                    if f32_rows is not None:
-                        tol = min(tol, F32_CAP * scale)
+                if f32_rows is not None and dt == torch.float32:
+                    k, p, r = k[f32_rows], p[f32_rows], r[f32_rows]
+                    scale = r.abs().max().item()
+                err, held, tol = _rule(k, p, r, scale, dt,
+                                       capped=f32_rows is not None)
                 good = held <= tol and bool(np.isfinite(err))
                 ok = ok and good
                 ratio = held / tol if tol > 0 else float(held > 0)
@@ -251,6 +254,22 @@ class KernelCheck:
         return statistics.median(times[1:])
 
 
+def _rule(k, p, r, scale, dt, capped=False):
+    """(err, held, tol) of a kernel's result k against the plain version's p
+    in the same dtype and the float64 plain reference r of largest entry
+    ``scale`` (all as float64): err is |k - p|max; float64 holds it to
+    F64_REL_TOL of scale; float32 holds |k - r|max to F32_FACTOR times the
+    float32 plain version's own error plus F32_FLOOR of scale (``capped``:
+    to at most F32_CAP of scale)."""
+    err = (k - p).abs().max().item()
+    if dt == torch.float64:
+        return err, err, F64_REL_TOL * scale
+    tol = F32_FACTOR * (p - r).abs().max().item() + F32_FLOOR * scale
+    if capped:
+        tol = min(tol, F32_CAP * scale)
+    return err, (k - r).abs().max().item(), tol
+
+
 def _bound(nbytes, flops, dt):
     """(ms, 'bytes' or 'operations'): the larger of the bytes over the HBM
     rate and the operations over the SIMT peak of ``dt``."""
@@ -263,6 +282,15 @@ def _chol_solve_ops(F, rhs=1):
     """Operations of one F x F Cholesky (F^3/3) and rhs pairs of triangular
     solves (2 F^2 each)."""
     return F ** 3 / 3 + 2 * F ** 2 * rhs
+
+
+def cost_h4(dt, N, F1, P):
+    """(bytes, operations) of H4 on N fronts: each front's lower triangle
+    (H4 touches nothing else) read once and written once; the pivot block's
+    Cholesky, the border solve and the Schur product's lower triangle."""
+    B1 = F1 - P
+    return N * F1 * (F1 + 1) * _size(dt), N * (P ** 3 / 3 + B1 * P * P
+                                               + B1 * B1 * P)
 
 
 def _size(dt):
@@ -483,7 +511,7 @@ def kernel_phase(spec, mf, seed, dev):
            lambda dt: cost_k2(dt, n2, F), main=False)
     del k2_in
 
-    # ---- H2 + H4, and H7, at the leaf's shape ----
+    # ---- H2 and H7 at the leaf's shape ----
     leaf = mf.levels[-1]
     N, EL, K = leaf.elem_pos.shape
     P, B = leaf.npiv, leaf.nbord
@@ -515,23 +543,9 @@ def kernel_phase(spec, mf, seed, dev):
         return (leaf_in - epos.size) * _size(dt) + epos.size * 4 \
             + N * F1 * F1 * _size(dt), leaf_ops
 
-    def cost_h4(dt, N=N, F1=F1, P=P):
-        B1 = F1 - P
-        return 2 * N * F1 * F1 * _size(dt), N * (P ** 3 / 3 + B1 * P * P
-                                                 + B1 * B1 * P)
-
     h2 = checks["leaf_assemble"] = KernelCheck("leaf_assemble")
     h2.run(label, mk_leaf, FR.leaf_assemble, FR.leaf_assemble_plain,
            torch.tril, cost_h2)
-
-    h4 = checks["front_factor"] = KernelCheck("front_factor")
-    fronts = {dt: FR.leaf_assemble_plain(*mk_leaf(dt))
-              for dt in (torch.float64, torch.float32)}
-
-    h4.run(label + f" P={P}", lambda dt: (fronts[dt].clone(), P),
-           FR.front_factor, FR.front_factor_plain, torch.tril, cost_h4,
-           mutates=True)
-    del fronts
 
     h7 = checks["leaf_assemble_bwd"] = KernelCheck("leaf_assemble_bwd")
     dfront = {torch.float64: _sym_randn((N, F1, F1), seed + 7, dev)}
@@ -547,8 +561,8 @@ def kernel_phase(spec, mf, seed, dev):
            cost_h7)
     del dfront
 
-    # ---- H3 + H4, and H6, at the top internal level with the widest
-    # front ----
+    # ---- H3 and H6 at the top internal level with the widest front (H4
+    # has a phase of its own, at every level) ----
     d_top = max(range(mf.depth), key=lambda d: mf.levels[d].front,
                 default=None)
     if d_top is not None:
@@ -585,17 +599,6 @@ def kernel_phase(spec, mf, seed, dev):
         h3 = checks["extend_add"] = KernelCheck("extend_add")
         h3.run(label, mk_top, FR.extend_add, FR.extend_add_plain,
                torch.tril, cost_h3)
-        G = rng.normal(size=(N, F1, F1)) / np.sqrt(F1)
-        spd = G @ np.swapaxes(G, 1, 2) + np.eye(F1)
-        spd = 0.5 * (spd + np.swapaxes(spd, 1, 2))
-        fronts_top = {dt: torch.as_tensor(spd, dtype=dt, device=dev)
-                      for dt in (torch.float64, torch.float32)}
-
-        h4.run(label + f" P={P}", lambda dt: (fronts_top[dt].clone(), P),
-               FR.front_factor, FR.front_factor_plain, torch.tril,
-               lambda dt: cost_h4(dt, N, F1, P), mutates=True, main=False)
-        del fronts_top
-
         # H6 writes, as on the main path, into the child fronts' [Pc:, Pc:]
         # blocks through a strided view of a (2N, F1c, F1c) buffer; the
         # rest of the buffer must stay 0
@@ -641,6 +644,156 @@ def kernel_phase(spec, mf, seed, dev):
                cost_h6, mutates=True)
         del dfront
     return checks
+
+
+# (N, F1, P) of the 14 levels of the multifrontal plan of n=1e6, m=40, SGV,
+# seed 1988 (root first, leaf last): what ``--only-h4`` runs without a spec
+H4_LEVELS_1E6 = (
+    (1, 3495, 3494), (2, 5233, 1738), (4, 5270, 1709), (8, 5247, 847),
+    (16, 4388, 869), (32, 3131, 439), (64, 2301, 448), (128, 1628, 234),
+    (256, 1185, 224), (512, 830, 113), (1024, 614, 110), (2048, 451, 55),
+    (4096, 334, 62), (8192, 330, 105))
+# a level phase holds at most this many bytes of float32 fronts; a level
+# with more is run on fewer fronts and its time scaled to its real count
+H4_LEVEL_BYTES = 4e9
+
+
+def _spd_fronts(N, F1, seed, dev, chunk_bytes=1e9):
+    """N float64 SPD fronts G G^T / F1 + I made on the card, G normal."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    out = torch.empty(N, F1, F1, dtype=torch.float64, device=dev)
+    step = max(1, int(chunk_bytes // (8 * F1 * F1)))
+    eye = torch.eye(F1, dtype=torch.float64, device=dev)
+    for s in range(0, N, step):
+        G = torch.randn(out[s:s + step].shape, generator=g,
+                        dtype=torch.float64, device=dev) / F1 ** 0.5
+        out[s:s + step] = G @ G.mT + eye
+    return out
+
+
+def _nan_upper(front):
+    """A copy whose strict upper triangles are NaN."""
+    F1 = front.shape[-1]
+    up = torch.ones(F1, F1, dtype=torch.bool, device=front.device).triu(1)
+    return front.masked_fill(up, torch.nan)
+
+
+def h4_edge_phase(dev, seed):
+    """H4 at the edge shapes of its schedule, kernel vs plain version in
+    float64 and float32 by KernelCheck's rule.  The kernel's inputs carry
+    NaN in their strict upper triangles, and its lower-triangle outputs must
+    also equal, bit for bit, those it gives on the clean inputs.  Then three
+    fronts of which the middle one is not SPD: its Schur block and last
+    pivot are NaN, the other two fronts are held as above, and the guard
+    values right after the batch stay untouched."""
+    from gpvecchia_torch.linalg import frontal as FR
+    worst = {torch.float64: 0.0, torch.float32: 0.0}
+
+    def hold(k, p, r, dt, what):
+        scale = r.abs().max().item()
+        err, held, tol = _rule(k.double(), p.double(), r, scale, dt)
+        if not (held <= tol and np.isfinite(err)):
+            raise AssertionError(f"front_factor {what} {dt}: kernel "
+                                 f"disagrees with its plain version: "
+                                 f"{held:.3e} > {tol:.3e} (scale {scale:.3e})")
+        worst[dt] = max(worst[dt], held / tol)
+
+    for idx, (N, F1, P) in enumerate(FR.H4_EDGE_SHAPES):
+        spd = _spd_fronts(N, F1, seed + idx, dev)
+        ref = torch.tril(FR.front_factor_plain(spd.clone(), P))
+        for dt in (torch.float64, torch.float32):
+            x = spd.to(dt)
+            k = torch.tril(FR.front_factor(_nan_upper(x), P))
+            clean = torch.tril(FR.front_factor(x.clone(), P))
+            pl = torch.tril(FR.front_factor_plain(x.clone(), P))
+            torch.cuda.synchronize()
+            if not torch.equal(k, clean):
+                raise AssertionError(f"front_factor N={N} F1={F1} P={P} {dt}:"
+                                     f" the upper triangle reached the output")
+            hold(k, pl, ref, dt, f"N={N} F1={F1} P={P}")
+
+    N, F1, P, guard = 3, 300, 200, 4096
+    spd = _spd_fronts(N, F1, seed + 100, dev)
+    spd[1, P // 2, P // 2] = -1.0
+    ref = torch.tril(FR.front_factor_plain(spd.clone(), P))
+    for dt in (torch.float64, torch.float32):
+        buf = torch.full((N * F1 * F1 + guard,), 7.0, dtype=dt, device=dev)
+        fronts = buf[:N * F1 * F1].view(N, F1, F1)
+        fronts.copy_(_nan_upper(spd.to(dt)))
+        k = torch.tril(FR.front_factor(fronts, P))
+        pl = torch.tril(FR.front_factor_plain(spd.to(dt, copy=True), P))
+        torch.cuda.synchronize()
+        bad = k[1]
+        rows = torch.arange(F1, device=dev)
+        low = rows[:, None] >= rows[None, :]
+        if not (bool(torch.isnan(bad[P:, P:][low[P:, P:]]).all())
+                and bool(torch.isnan(bad[P - 1, P - 1]))
+                and bool(torch.isnan(pl[1]).any())):
+            raise AssertionError(f"front_factor {dt}: a front that is not "
+                                 f"SPD did not give NaN")
+        if not bool((buf[N * F1 * F1:] == 7.0).all()):
+            raise AssertionError(f"front_factor {dt}: wrote past the batch")
+        keep = [0, 2]
+        hold(k[keep], pl[keep], ref[keep], dt, "beside a front not SPD")
+    log(f"  front_factor edge shapes: {len(FR.H4_EDGE_SHAPES)} shapes and a "
+        f"batch with a front not SPD pass in f64 and f32, NaN upper "
+        f"triangles ignored; largest held/tol f64 "
+        f"{worst[torch.float64]:.3f}, f32 {worst[torch.float32]:.3f}")
+
+
+def h4_level_phase(shapes, dev, seed):
+    """H4 at each (N, F1, P) of ``shapes`` (the levels of a multifrontal
+    plan, root first) on SPD fronts, against its plain version: one row a
+    level and dtype with the kernel's, the plain version's (cuSOLVER potrf,
+    cuBLAS trsm and gemm) and the bound's milliseconds and the achieved
+    TFLOP/s, and the sum over the levels of the times scaled to each
+    level's real number of fronts: H4's share of one evaluation.  Returns
+    the rows and the KernelCheck, whose last level (the leaf, the shape
+    that most of the main path's fronts have) is its main shape."""
+    from gpvecchia_torch.linalg import frontal as FR
+    chk = KernelCheck("front_factor")
+    out = []
+    for lvl, (N, F1, P) in enumerate(shapes):
+        n_run = min(N, max(1, int(H4_LEVEL_BYTES // (4 * F1 * F1))))
+        spd = _spd_fronts(n_run, F1, seed + lvl, dev)
+        fronts = {torch.float64: spd, torch.float32: spd.float()}
+        chk.run(f"level {lvl} N={n_run}/{N} F1={F1} P={P}",
+                lambda dt: (fronts[dt].clone(), P), FR.front_factor,
+                FR.front_factor_plain, torch.tril,
+                lambda dt: cost_h4(dt, n_run, F1, P), mutates=True,
+                main=lvl == len(shapes) - 1)
+        del fronts, spd
+        torch.cuda.empty_cache()
+        for row in chk.rows[-2:]:
+            dt = getattr(torch, row["dtype"])
+            scale = N / n_run
+            out.append(dict(level=lvl, N=N, N_run=n_run, F1=F1, P=P,
+                            dtype=row["dtype"], ms=row["ms"] * scale,
+                            library_ms=row["plain_ms"] * scale,
+                            bound_ms=row["bound_ms"] * scale,
+                            bound_by=row["bound_by"],
+                            tflops=cost_h4(dt, n_run, F1, P)[1]
+                            / (row["ms"] * 1e9),
+                            held_err=row["held_err"], tol=row["tol"]))
+    for name in ("float32", "float64"):
+        rows = [r for r in out if r["dtype"] == name]
+        log(f"  H4 by level, {name} (times scaled to the level's N): level "
+            f"N F1 P | kernel ms | library ms | bound ms | TFLOP/s")
+        for r in rows:
+            log(f"    {r['level']:2d} {r['N']:5d} {r['F1']:5d} {r['P']:5d} | "
+                f"{r['ms']:8.3f} | {r['library_ms']:8.3f} | "
+                f"{r['bound_ms']:7.3f} ({r['bound_by']}) | {r['tflops']:6.2f}")
+        log(f"  H4 summed over the {len(rows)} levels, {name}: kernel "
+            f"{sum(r['ms'] for r in rows):.3f} ms, library "
+            f"{sum(r['library_ms'] for r in rows):.3f} ms, bound "
+            f"{sum(r['bound_ms'] for r in rows):.3f} ms")
+    return out, chk
+
+
+def _level_shapes(mf):
+    """(N, F1, P) of each level of a multifrontal plan, root first."""
+    return tuple((lv.piv_ids.shape[0], lv.npiv + lv.nbord + 1, lv.npiv)
+                 for lv in mf.levels)
 
 
 def value_grad(fn, zt, nug, covparms=COVPARMS):
@@ -1088,6 +1241,10 @@ def main():
                     help="profile one f32 evaluation and one f32 "
                          "value+grad (kernel time by name, device busy "
                          "share)")
+    ap.add_argument("--only-h4", action="store_true",
+                    help="a tool for work on H4: build, H4's edge shapes and "
+                         "H4 at the 14 level shapes of n=1e6, m=40, and "
+                         "nothing else; prints no final device line")
     args = ap.parse_args()
 
     if not torch.cuda.is_available():
@@ -1122,6 +1279,14 @@ def main():
         if "registers" in line or "spill" in line:
             log(f"  ptxas: {line.strip()}")
 
+    dev = torch.device("cuda:0")
+    if args.only_h4:
+        log("H4 alone (no spec, no plan; not a pass of this script):")
+        h4_edge_phase(dev, args.seed)
+        rows, _ = h4_level_phase(H4_LEVELS_1E6, dev, args.seed)
+        print(json.dumps({"h4_levels": rows, "smi": smi}))
+        return
+
     # ---- host: spec + plan ----
     rng = np.random.default_rng(args.seed)
     locs = rng.uniform(size=(args.n, 2))
@@ -1138,7 +1303,10 @@ def main():
         f"{mf.levels[0].npiv}")
 
     log("kernel phase (kernel vs plain version on the card):")
-    checks = kernel_phase(spec, mf, args.seed, torch.device("cuda:0"))
+    checks = kernel_phase(spec, mf, args.seed, dev)
+    h4_edge_phase(dev, args.seed)
+    h4_levels, checks["front_factor"] = h4_level_phase(
+        _level_shapes(mf), dev, args.seed)
 
     log("slice phase:")
     big = args.n > 100_000
@@ -1263,7 +1431,8 @@ def main():
                       "peak_bytes": peak, "grad_peak_bytes": grad_peak,
                       "general_peak_bytes": gen_peak,
                       "grad_launches": grad_launches,
-                      "general_launches": gen_launches, "smi": smi},
+                      "general_launches": gen_launches,
+                      "h4_levels": h4_levels, "smi": smi},
                      default=float))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -31,19 +31,41 @@
 // linalg/multifrontal.py:628-629.  A partial Cholesky over the first P
 // columns, in place: L_pp in the lower [:P, :P], L_bp_aug = A_bp L_pp^{-T}
 // in [P:, :P] (its last row is y) and upd_aug = A_bb - L_bp L_bp^T in the
-// lower triangle of [P:, P:].  Bound on the chip by the trailing update's
-// FMA loop (f32 at n=1e6 shapes: ~5 TFLOP/s at the leaf and ~8 TFLOP/s at
-// fronts of 5270, of the 67 TFLOP/s SIMT peak; H100 80GB HBM3, 700 W), and
-// at the root (N = 1, F ~ 3500) by the serial chain of panels.  Design: a
-// right-looking sweep of 32-wide panels, each panel launched once over ALL
-// fronts of the level: diagonal tile (one warp per front), panel TRSM (one
-// thread per row, grid over fronts x row blocks) and trailing update (64 x 64
-// shared-memory tiles, 256 threads of 4 x 4 outputs, grid over fronts x
-// lower-triangle tiles; 64 threads of 8 x 8, and 32 x 32 tiles, measured
-// slower on an H100).  The same code path fills the card at the leaf
-// (N = 8192) and at the root.  All three kernels read and write lower
-// triangles only; the upper triangle of a front is never initialized.
-// Pivots are not clamped: a non-SPD front gives NaN.
+// lower triangle of [P:, P:].  What bounds it on an H100 changes with the
+// level.  The wide middle levels (few fronts of ~5000, P ~ 400-1700) are
+// bound by operations: the Schur product B1^2 P is most of their work.
+// The leaf (thousands of fronts of ~330, P ~ 100) is bound by bytes: each
+// front's lower triangle is read and written once and its products are
+// short.  The root
+// (one front, no border) is bound by the serial chain of its panels.
+// Design: a blocked right-looking factor in two levels.  Outer panels of
+// OW pivot columns; inside one, 32-wide inner panels (diagonal tile: one
+// warp per front, a row a lane in registers, columns passed by shuffles;
+// panel TRSM: one thread per row, the rows staged through shared memory so
+// that device-memory accesses coalesce; update of the outer panel's
+// remaining columns: 64 x 64 shared-memory tiles) touch only the thin slab
+// of that outer panel.  After an outer panel one symmetric
+// update C -= A A^T of depth OW brings the remaining pivot columns up to
+// date, and after the last panel ONE such update of depth P forms the Schur
+// block, so each front's [P:, P:] is read and written once (a sweep that
+// updates it once per 32 pivots moves 8x the bytes at the middle levels).
+// That update is a register-tiled product: 256 threads, 128 x 128 outputs
+// a block and 8 x 8 a thread (64 x 64 and 4 x 4 where fewer than 192 rows
+// are left to update), k slabs staged transposed in shared memory, the
+// next slab copied asynchronously (cp.async) while the current one is
+// multiplied, one barrier a slab; lower-triangle tiles only.  Each kernel
+// launches once over ALL fronts of the level (grid: tiles x fronts), so
+// the same code path fills the card at the leaf (N = 8192) and at the
+// root's trailing updates.  Rows of a front start at any address (F1 is
+// odd at most levels), so device-memory accesses are scalar and ragged
+// edges are masked.  Every launch reads columns disjoint from those it
+// writes.  All kernels read and write lower triangles only; the upper
+// triangle of a front is never initialized.  Pivots are not clamped: a
+// non-SPD front gives NaN in that front alone.  What is left: the product
+// runs at about half the SIMT peak (the middle levels); the leaf's thin
+// panel kernels move its strip several times (a strip kept in shared
+// memory would not); the root's 330 small dependent launches (P = 3494:
+// 110 diagonal tiles, 110 TRSMs, 82 inner and 28 symmetric updates).
 //
 // H6 extend_add_bwd replaces K8b, linalg/pallas_eadd.py `_bwd_kernel`
 // (pallas_call at :117, `_eadd_bwd_impl`), and the `dch` halves of the level
@@ -72,13 +94,20 @@
 
 namespace {
 
-constexpr int NB = 32;       // panel width
-constexpr int TS = 64;       // trailing-update tile (TS x TS outputs)
+constexpr int NB = 32;       // inner panel width
+constexpr int OW = 128;      // outer panel width (a multiple of NB)
+constexpr int TS = 64;       // inner update tile (TS x TS outputs)
 constexpr int TM = 4;        // per-thread outputs (TM x TM)
 constexpr int TT = TS / TM;  // threads per tile side
 constexpr int UPD_THREADS = TT * TT;
 constexpr int TRSM_ROWS = 128;
+constexpr int SY_THREADS = 256;  // symmetric update: 16 x 16 threads
+constexpr int SY_SMALL = 192;    // row extent below which it takes 64-tiles
+// blocks an SM should hold: 2 of the float32 128-tile (128 registers a
+// thread, no spills), else what the registers allow
+#define SY_BLOCKS(T, BT) ((sizeof(T) == 4 && (BT) == 128) ? 2 : 1)
 static_assert(UPD_THREADS % 32 == 0, "whole warps per update block");
+static_assert(OW % NB == 0, "whole inner panels per outer panel");
 
 template <typename T>
 __global__ void leaf_assemble_kernel(const T* __restrict__ u,
@@ -146,79 +175,112 @@ __global__ void extend_add_kernel(const T* __restrict__ upd, long s_node,
   front[n * FF + t] = acc;
 }
 
-// diagonal tile of panel k0 (width kb <= NB): one warp per front
+// diagonal tile of panel k0 (width kb <= NB): one warp per front, lane =
+// row, the row in registers; column k of the factor reaches the other lanes
+// by shuffles.  Rows and columns past kb are those of the identity.
 template <typename T>
 __global__ void panel_diag_kernel(T* __restrict__ front, int F1, int k0,
                                   int kb) {
-  __shared__ T S[NB][NB + 1];
+  constexpr unsigned ALL = 0xffffffffu;
   T* A = front + (long)blockIdx.x * F1 * F1;
   const int lane = threadIdx.x;
-  if (lane < kb)
-    for (int j = 0; j <= lane; ++j)
-      S[lane][j] = A[(long)(k0 + lane) * F1 + k0 + j];
-  __syncwarp();
-  for (int k = 0; k < kb; ++k) {
-    const T inv = T(1) / sqrt(S[k][k]);
-    __syncwarp();
-    if (lane >= k && lane < kb) S[lane][k] *= inv;
-    __syncwarp();
-    if (lane > k && lane < kb) {
-      const T lik = S[lane][k];
-      for (int j = k + 1; j <= lane; ++j) S[lane][j] -= lik * S[j][k];
-    }
-    __syncwarp();
-  }
-  if (lane < kb)
-    for (int j = 0; j <= lane; ++j)
-      A[(long)(k0 + lane) * F1 + k0 + j] = S[lane][j];
-}
-
-// panel TRSM: rows r >= k0+kb solve x L11^T = A[r, k0:k0+kb]
-template <typename T>
-__global__ void panel_trsm_kernel(T* __restrict__ front, int F1, int k0,
-                                  int kb) {
-  __shared__ T L[NB][NB + 1];
-  T* A = front + (long)blockIdx.y * F1 * F1;
-  for (int t = threadIdx.x; t < NB * NB; t += blockDim.x) {
-    const int i = t / NB, j = t - (t / NB) * NB;
-    L[i][j] = (i < kb && j <= i) ? A[(long)(k0 + i) * F1 + k0 + j] : T(0);
-  }
-  __syncthreads();
-  const int r = k0 + kb + blockIdx.x * blockDim.x + threadIdx.x;
-  if (r >= F1) return;
-  T* row = A + (long)r * F1 + k0;
-  T x[NB];
+  T* row = A + (long)(k0 + lane) * F1 + k0;
+  T r[NB];
 #pragma unroll
-  for (int j = 0; j < NB; ++j) {
-    if (j < kb) {
-      T s = row[j];
+  for (int j = 0; j < NB; ++j)
+    r[j] = (lane < kb && j <= lane) ? row[j] : (j == lane ? T(1) : T(0));
 #pragma unroll
-      for (int l = 0; l < j; ++l) s -= x[l] * L[j][l];
-      x[j] = s / L[j][j];
+  for (int k = 0; k < NB; ++k) {
+    const T inv = T(1) / sqrt(__shfl_sync(ALL, r[k], k));
+    if (lane >= k) r[k] *= inv;
+#pragma unroll
+    for (int j = k + 1; j < NB; ++j) {
+      const T ljk = __shfl_sync(ALL, r[k], j);
+      if (lane >= j) r[j] -= r[k] * ljk;
     }
   }
 #pragma unroll
   for (int j = 0; j < NB; ++j)
-    if (j < kb) row[j] = x[j];
+    if (lane < kb && j <= lane) row[j] = r[j];
 }
 
-// trailing update of rows/columns >= k0+kb, lower-triangle tiles only.
+// panel TRSM: rows r >= k0+kb solve x L11^T = A[r, k0:k0+kb].  A block
+// stages its rows' panel entries in shared memory through coalesced loads
+// (lane = column), one thread solves one row there against L11 (its
+// diagonal kept inverted), and the block stores the rows back coalesced.
+template <typename T>
+__global__ void panel_trsm_kernel(T* __restrict__ front, int F1, int k0,
+                                  int kb) {
+  __shared__ T L[NB][NB + 1];
+  __shared__ T X[TRSM_ROWS][NB + 1];
+  T* A = front + (long)blockIdx.y * F1 * F1;
+  for (int t = threadIdx.x; t < NB * NB; t += blockDim.x) {
+    const int i = t / NB, j = t - (t / NB) * NB;
+    T v = (i < kb && j <= i) ? A[(long)(k0 + i) * F1 + k0 + j] : T(0);
+    if (i == j) v = i < kb ? T(1) / v : T(1);
+    L[i][j] = v;
+  }
+  const int rb = k0 + kb + blockIdx.x * TRSM_ROWS;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  for (int c = warp; c < TRSM_ROWS; c += TRSM_ROWS / 32)
+    X[c][lane] = (lane < kb && rb + c < F1)
+                     ? A[(long)(rb + c) * F1 + k0 + lane] : T(0);
+  __syncthreads();
+  T x[NB];
+#pragma unroll
+  for (int j = 0; j < NB; ++j) {
+    T s = X[threadIdx.x][j];
+#pragma unroll
+    for (int l = 0; l < j; ++l) s -= x[l] * L[j][l];
+    x[j] = s * L[j][j];
+  }
+#pragma unroll
+  for (int j = 0; j < NB; ++j) X[threadIdx.x][j] = x[j];
+  __syncthreads();
+  for (int c = warp; c < TRSM_ROWS; c += TRSM_ROWS / 32)
+    if (lane < kb && rb + c < F1)
+      A[(long)(rb + c) * F1 + k0 + lane] = X[c][lane];
+}
+
+// Block b of a launch over the lower-triangle tiles (ti, tj), tj <= ti, of
+// a region whose tile columns stop at ntj: the first ntj tile rows form a
+// triangle, enumerated row by row, the rest are full rows of ntj tiles.
+__device__ __forceinline__ void tile_of(int b, int ntj, int& ti, int& tj) {
+  const int tri = ntj * (ntj + 1) / 2;
+  if (b < tri) {
+    ti = (int)((sqrtf(8.0f * b + 1.0f) - 1.0f) * 0.5f);
+    while ((ti + 1) * (ti + 2) / 2 <= b) ++ti;
+    while (ti * (ti + 1) / 2 > b) --ti;
+    tj = b - ti * (ti + 1) / 2;
+  } else {
+    b -= tri;
+    ti = ntj + b / ntj;
+    tj = b - (b / ntj) * ntj;
+  }
+}
+
+// number of blocks of such a launch: rows [r0, F1), columns [r0, c1)
+inline int tile_count(int F1, int r0, int c1, int tile) {
+  const int nti = (F1 - r0 + tile - 1) / tile;
+  const int ntj = (c1 - r0 + tile - 1) / tile;
+  return ntj * (ntj + 1) / 2 + (nti - ntj) * ntj;
+}
+
+// inner update of one 32-wide panel: rows >= k0+kb, columns [k0+kb, c1)
+// (the rest of the outer panel), lower-triangle tiles only.
 // A TS x TS tile per block, TM x TM outputs per thread; the two L21 panels
 // are staged in shared memory with rows padded to TS+1, so both the
 // coalesced staging stores and the compute loads are free of bank conflicts,
 // and each thread does TM*TM FMAs per 2*TM shared loads.
 template <typename T>
 __global__ void panel_update_kernel(T* __restrict__ front, int F1, int k0,
-                                    int kb) {
+                                    int kb, int c1) {
   __shared__ T Li[NB][TS + 1];
   __shared__ T Lj[NB][TS + 1];
   T* A = front + (long)blockIdx.y * F1 * F1;
   const int r0 = k0 + kb;
-  // blockIdx.x enumerates the tiles (ti, tj) with tj <= ti, row by row
-  int ti = (int)((sqrtf(8.0f * blockIdx.x + 1.0f) - 1.0f) * 0.5f);
-  while ((ti + 1) * (ti + 2) / 2 <= (int)blockIdx.x) ++ti;
-  while (ti * (ti + 1) / 2 > (int)blockIdx.x) --ti;
-  const int tj = blockIdx.x - ti * (ti + 1) / 2;
+  int ti, tj;
+  tile_of((int)blockIdx.x, (c1 - r0 + TS - 1) / TS, ti, tj);
   const int i0 = r0 + ti * TS, j0 = r0 + tj * TS;
   // stage: each warp copies whole rows c; lane = column l of the panel
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
@@ -254,7 +316,151 @@ __global__ void panel_update_kernel(T* __restrict__ front, int F1, int k0,
 #pragma unroll
     for (int q = 0; q < TM; ++q) {
       const int j = j0 + tx + TT * q;
-      if (j < F1) A[(long)i * F1 + j] -= acc[p][q];
+      if (j < c1 && j <= i) A[(long)i * F1 + j] -= acc[p][q];
+    }
+  }
+}
+
+// four consecutive values from shared memory, 16-byte loads
+__device__ __forceinline__ void ld4(const float* p, float* out) {
+  const float4 v = *reinterpret_cast<const float4*>(p);
+  out[0] = v.x; out[1] = v.y; out[2] = v.z; out[3] = v.w;
+}
+__device__ __forceinline__ void ld4(const double* p, double* out) {
+  const double2 v = reinterpret_cast<const double2*>(p)[0];
+  const double2 w = reinterpret_cast<const double2*>(p)[1];
+  out[0] = v.x; out[1] = v.y; out[2] = w.x; out[3] = w.y;
+}
+
+__device__ __forceinline__ unsigned smem_addr(const void* p) {
+  return (unsigned)__cvta_generic_to_shared(p);
+}
+
+// asynchronous copy of one value from device to shared memory, or a 0
+// written there when ``valid`` is false (no byte of src is read then)
+__device__ __forceinline__ void cp_async_or_zero(unsigned dst, const float* src,
+                                                 bool valid) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n"
+               :: "r"(dst), "l"(src), "r"(valid ? 4 : 0) : "memory");
+}
+__device__ __forceinline__ void cp_async_or_zero(unsigned dst,
+                                                 const double* src,
+                                                 bool valid) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 8, %2;\n"
+               :: "r"(dst), "l"(src), "r"(valid ? 8 : 0) : "memory");
+}
+
+// Symmetric update C[i][j] -= sum_{k in [k0, k1)} A[i][k] A[j][k] over rows
+// i in [r0, F1) and columns j in [r0, c1), j <= i, with k1 <= r0: the read
+// columns [k0, k1) and the written ones are disjoint.  One BT x BT tile a
+// block (grid: lower-triangle tiles x fronts), 16 x 16 threads of TM x TM
+// outputs, TM = BT / 16; a thread's rows and columns come in groups of 4
+// consecutive ones, so its shared-memory loads are 16 bytes and a warp's
+// are contiguous.  k runs in slabs of KS; a slab of the row operand and one
+// of the column operand sit in shared memory transposed ([k][row], rows
+// padded by 4 so that the staging stores of a warp, 4 rows x 8 k, fall
+// into 32 distinct banks), in two buffers: asynchronous copies (cp.async,
+// one value each, since a front's rows start at any address) bring the
+// next slab into the other buffer while the current one is multiplied, one
+// barrier a slab.  Rows past F1 and k past k1 are staged as 0.
+template <typename T, int BT>
+__global__ void __launch_bounds__(SY_THREADS, SY_BLOCKS(T, BT))
+syrk_update_kernel(T* front, int F1, int r0, int c1, int k0, int k1) {
+  // slab depth; 8 where two buffers of 16 would pass 48 KB (f64, BT 128)
+  constexpr int KS = (sizeof(T) == 8 && BT == 128) ? 8 : 16;
+  constexpr int S = BT + 4;                // padded slab row
+  constexpr int TMS = BT / 16;             // outputs a thread and side
+  constexpr int G = TMS / 4;               // groups of 4 a thread and side
+  constexpr int GS = BT / G;               // distance between groups
+  static_assert(TMS % 4 == 0 && BT % 32 == 0 && KS % 8 == 0, "tile shape");
+  __shared__ __align__(16) T Ai[2][KS][S];
+  __shared__ __align__(16) T Aj[2][KS][S];
+  T* A = front + (long)blockIdx.y * F1 * F1;
+  int ti, tj;
+  tile_of((int)blockIdx.x, (c1 - r0 + BT - 1) / BT, ti, tj);
+  const int i0 = r0 + ti * BT, j0 = r0 + tj * BT;
+  const int t = threadIdx.x;
+  const int tx = t % 16, ty = t / 16;
+
+  // staging: a warp's copies cover 4 rows x 8 consecutive k (lane = 8 rr +
+  // kk); unit h of warp w is row-quad w + 8 (h % HR), k-octet h / HR
+  constexpr int HR = BT / 32;              // row-quad steps of a warp
+  constexpr int NU = HR * (KS / 8);        // units a warp stages
+  const int kk = t % 8, rq = 4 * (t / 32) + (t % 32) / 8;
+  const T* gi = A + (long)(i0 + rq) * F1 + kk;
+  const T* gj = A + (long)(j0 + rq) * F1 + kk;
+  const long F32 = 32L * F1;
+  unsigned oki = 0, okj = 0;               // bit u: row rq + 32 u is in the front
+#pragma unroll
+  for (int u = 0; u < HR; ++u) {
+    oki |= (unsigned)(i0 + rq + 32 * u < F1) << u;
+    okj |= (unsigned)(j0 + rq + 32 * u < F1) << u;
+  }
+  const unsigned si = smem_addr(&Ai[0][kk][rq]), sj = smem_addr(&Aj[0][kk][rq]);
+  auto stage = [&](int kb, int buf) {
+#pragma unroll
+    for (int h = 0; h < NU; ++h) {
+      const bool kin = kb + 8 * (h / HR) + kk < k1;
+      const bool vi = kin && (oki >> (h % HR) & 1u);
+      const bool vj = kin && (okj >> (h % HR) & 1u);
+      const long off = (h % HR) * F32 + 8 * (h / HR) + kb;
+      const unsigned dst =
+          (unsigned)(((buf * KS + 8 * (h / HR)) * S + 32 * (h % HR)) * sizeof(T));
+      cp_async_or_zero(si + dst, gi + off, vi);
+      cp_async_or_zero(sj + dst, gj + off, vj);
+    }
+    asm volatile("cp.async.commit_group;\n" ::: "memory");
+  };
+
+  T acc[TMS][TMS];
+#pragma unroll
+  for (int p = 0; p < TMS; ++p)
+#pragma unroll
+    for (int q = 0; q < TMS; ++q) acc[p][q] = T(0);
+
+  stage(k0, 0);
+  int buf = 0;
+  for (int kb = k0; kb < k1; kb += KS) {
+    // this slab has landed; the barrier also frees the other buffer, which
+    // every thread has finished multiplying
+    asm volatile("cp.async.wait_all;\n" ::: "memory");
+    __syncthreads();
+    if (kb + KS < k1) stage(kb + KS, buf ^ 1);
+#pragma unroll
+    for (int k = 0; k < KS; ++k) {
+      T a[TMS], b[TMS];
+#pragma unroll
+      for (int g = 0; g < G; ++g) {
+        ld4(&Ai[buf][k][g * GS + 4 * ty], a + 4 * g);
+        ld4(&Aj[buf][k][g * GS + 4 * tx], b + 4 * g);
+      }
+#pragma unroll
+      for (int p = 0; p < TMS; ++p)
+#pragma unroll
+        for (int q = 0; q < TMS; ++q) acc[p][q] += a[p] * b[q];
+    }
+    buf ^= 1;
+  }
+
+  // C -= acc, one row of the thread's outputs at a time: its loads come
+  // before its stores.  C is read and written through one pointer, so
+  // the compiler keeps every load behind the store before it, and single
+  // read-modify-writes would wait out the memory's latency once an entry.
+#pragma unroll
+  for (int p = 0; p < TMS; ++p) {
+    const int i = i0 + (p / 4) * GS + 4 * ty + p % 4;
+    if (i >= F1) continue;
+    T* row = A + (long)i * F1 + j0;
+    T v[TMS];
+#pragma unroll
+    for (int q = 0; q < TMS; ++q) {
+      const int c = (q / 4) * GS + 4 * tx + q % 4;
+      v[q] = (j0 + c < c1 && j0 + c <= i) ? row[c] : T(0);
+    }
+#pragma unroll
+    for (int q = 0; q < TMS; ++q) {
+      const int c = (q / 4) * GS + 4 * tx + q % 4;
+      if (j0 + c < c1 && j0 + c <= i) row[c] = v[q] - acc[p][q];
     }
   }
 }
@@ -382,26 +588,53 @@ int launch_extend_add(const T* upd, long s_node, long s_child, long s_row,
 }
 
 template <typename T>
+int launch_syrk_update(T* front, int N, int F1, int r0, int c1, int k0, int k1,
+                       cudaStream_t st) {
+  if (F1 - r0 < SY_SMALL) {
+    dim3 grid(tile_count(F1, r0, c1, 64), N);
+    syrk_update_kernel<T, 64><<<grid, SY_THREADS, 0, st>>>(front, F1, r0, c1,
+                                                           k0, k1);
+  } else {
+    dim3 grid(tile_count(F1, r0, c1, 128), N);
+    syrk_update_kernel<T, 128><<<grid, SY_THREADS, 0, st>>>(front, F1, r0, c1,
+                                                            k0, k1);
+  }
+  return (int)cudaGetLastError();
+}
+
+template <typename T>
 int launch_front_factor(T* front, int N, int F1, int P, cudaStream_t st) {
   if (N == 0) return 0;
-  for (int k0 = 0; k0 < P; k0 += NB) {
-    const int kb = P - k0 < NB ? P - k0 : NB;
-    panel_diag_kernel<T><<<N, 32, 0, st>>>(front, F1, k0, kb);
-    int rc = (int)cudaGetLastError();
-    if (rc) return rc;
-    const int R = F1 - k0 - kb;
-    if (R <= 0) continue;
-    dim3 gt((R + TRSM_ROWS - 1) / TRSM_ROWS, N);
-    panel_trsm_kernel<T><<<gt, TRSM_ROWS, 0, st>>>(front, F1, k0, kb);
-    rc = (int)cudaGetLastError();
-    if (rc) return rc;
-    const int tiles = (R + TS - 1) / TS;
-    dim3 gu(tiles * (tiles + 1) / 2, N);
-    panel_update_kernel<T><<<gu, UPD_THREADS, 0, st>>>(front, F1, k0, kb);
-    rc = (int)cudaGetLastError();
-    if (rc) return rc;
+  int rc;
+  for (int o0 = 0; o0 < P; o0 += OW) {
+    const int o1 = P - o0 < OW ? P : o0 + OW;
+    // the outer panel's columns [o0, o1): 32-wide inner panels that update
+    // nothing to the right of o1
+    for (int k0 = o0; k0 < o1; k0 += NB) {
+      const int kb = o1 - k0 < NB ? o1 - k0 : NB;
+      panel_diag_kernel<T><<<N, 32, 0, st>>>(front, F1, k0, kb);
+      rc = (int)cudaGetLastError();
+      if (rc) return rc;
+      const int r0 = k0 + kb;              // r0 <= P < F1
+      dim3 gt((F1 - r0 + TRSM_ROWS - 1) / TRSM_ROWS, N);
+      panel_trsm_kernel<T><<<gt, TRSM_ROWS, 0, st>>>(front, F1, k0, kb);
+      rc = (int)cudaGetLastError();
+      if (rc) return rc;
+      if (r0 == o1) continue;
+      dim3 gu(tile_count(F1, r0, o1, TS), N);
+      panel_update_kernel<T><<<gu, UPD_THREADS, 0, st>>>(front, F1, k0, kb,
+                                                         o1);
+      rc = (int)cudaGetLastError();
+      if (rc) return rc;
+    }
+    // the remaining pivot columns [o1, P), rows >= o1, with depth o1 - o0
+    if (o1 < P) {
+      rc = launch_syrk_update(front, N, F1, o1, P, o0, o1, st);
+      if (rc) return rc;
+    }
   }
-  return 0;
+  // the Schur block [P:, P:], once, with depth P
+  return launch_syrk_update(front, N, F1, P, F1, 0, P, st);
 }
 
 }  // namespace

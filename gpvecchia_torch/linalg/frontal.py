@@ -15,7 +15,8 @@ block carries the RHS update to the parent.
   ``_fwd_kernel`` (:98, ``eadd_fronts``).
 * H4 ``front_factor`` replaces ``linalg/pallas_frontal.py``
   ``_factor_kernel`` (:180, ``factor_fronts``) and the factor and Schur
-  halves of the leaf and level kernels.
+  halves of the leaf and level kernels: a blocked right-looking factor
+  whose last launch forms each front's Schur block once.
 * H6 ``extend_add_bwd`` replaces K8b, ``linalg/pallas_eadd.py``
   ``_bwd_kernel`` (:117, ``_eadd_bwd_impl``), and the ``dch`` halves of the
   level and assembly VJPs (``pallas_level.py:436-486, 831-883``).
@@ -49,9 +50,25 @@ from ..csrc import cuda
 __all__ = ["leaf_assemble", "leaf_assemble_plain", "extend_add",
            "extend_add_plain", "front_factor", "front_factor_plain",
            "front_factor_vjp", "extend_add_bwd", "extend_add_bwd_plain",
-           "leaf_assemble_bwd", "leaf_assemble_bwd_plain"]
+           "leaf_assemble_bwd", "leaf_assemble_bwd_plain",
+           "H4_EDGE_SHAPES"]
 
 _MAX_GRID_Y = 65535
+
+# (N, F1, P) shapes at the edges of H4's blocked schedule (inner panels of
+# 32 pivots, outer panels of 128, update tiles of 64 and 128), which the
+# card check runs through the kernel and the CPU tests through its plain
+# version: P below, at and one past an inner and an outer panel (and at a
+# width of 256, twice the outer panel), P = F1 - 1 (no border but the RHS
+# row, the root's shape), a Schur block of 2 rows, fronts one past a tile
+# (129, 257), one front, several outer panels with and without a border,
+# and a Schur block that takes the large tiles with a ragged edge.
+H4_EDGE_SHAPES = (
+    (2, 40, 7), (2, 33, 32), (2, 70, 32), (2, 70, 33), (2, 40, 39),
+    (2, 130, 64), (2, 66, 64), (2, 200, 127), (2, 200, 128), (2, 200, 129),
+    (2, 300, 255), (2, 300, 256), (2, 300, 257), (2, 129, 50),
+    (2, 257, 100), (1, 150, 60), (1, 600, 599), (3, 700, 300),
+    (2, 900, 130))
 
 
 def _same_device(name, ref, *tensors):

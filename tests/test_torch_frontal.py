@@ -19,7 +19,8 @@ from gpvecchia_tpu.linalg.multifrontal import mf_device_arrays as jax_mfdev
 from gpvecchia_tpu.linalg.multifrontal import mf_factor as jax_mf_factor
 
 from gpvecchia_torch import vecchia_specify
-from gpvecchia_torch.linalg.frontal import (extend_add, extend_add_plain,
+from gpvecchia_torch.linalg.frontal import (H4_EDGE_SHAPES, extend_add,
+                                            extend_add_plain, front_factor,
                                             front_factor_plain,
                                             leaf_assemble_plain)
 from gpvecchia_torch.linalg.multifrontal import mf_device_arrays, mf_factor
@@ -148,7 +149,11 @@ def test_h3_reads_strided_child_fronts():
                                                 _t(rhs)), rtol=0, atol=0)
 
 
-@pytest.mark.parametrize("F,P", [(12, 5), (50, 50), (37, 16)])
+# beside the first three cases, edge shapes of H4's blocked schedule that
+# ``factor_fronts`` takes in interpret mode: P = 32 with no border but the
+# RHS row, P one past an inner panel, P = F - 1, and a front one past a tile
+@pytest.mark.parametrize("F,P", [(12, 5), (50, 50), (37, 16), (33, 32),
+                                 (70, 33), (40, 39), (130, 64)])
 def test_h4_matches_factor_fronts(interpret, F, P):
     rng = np.random.default_rng(2)
     A = rng.normal(size=(3, F, F)).astype(np.float32) * 0.1
@@ -163,6 +168,72 @@ def test_h4_matches_factor_fronts(interpret, F, P):
     np.testing.assert_allclose(
         upd, front[:, P:, P:] - Lbp @ np.swapaxes(Lbp, 1, 2), rtol=0,
         atol=ATOL)
+
+
+def _spd_fronts(N, F1, seed):
+    rng = np.random.default_rng(seed)
+    G = rng.normal(size=(N, F1, F1)) / np.sqrt(F1)
+    return _t(G @ np.swapaxes(G, 1, 2) + np.eye(F1))
+
+
+def test_h4_edge_shapes_cover_the_schedule():
+    """The list the card check runs holds the edges of the blocked schedule
+    (inner panels of 32, outer panels of 128, tiles of 64 and 128)."""
+    shapes = set(H4_EDGE_SHAPES)
+    P_of = {P for _, _, P in shapes}
+    assert {31, 32, 33} & P_of and min(P_of) < 32
+    for W in (128, 256):
+        assert {W - 1, W, W + 1} <= P_of
+    assert any(P == F1 - 1 for _, F1, P in shapes)          # no border
+    assert any(F1 - P == 2 for _, F1, P in shapes)          # B1 = 2
+    assert {129, 257} <= {F1 for _, F1, _ in shapes}
+    assert any(N == 1 for N, _, _ in shapes)
+    assert all(0 < P < F1 for _, F1, P in shapes)
+
+
+@pytest.mark.parametrize("N,F1,P", [s for s in H4_EDGE_SHAPES if s[1] <= 300])
+def test_h4_plain_at_edge_shapes(N, F1, P):
+    """The plain version (the kernel's oracle on the card) is a partial
+    Cholesky at every edge shape: its three blocks rebuild the front."""
+    front = _spd_fronts(N, F1, F1 + P)
+    lpp, lbp, upd = _factored_parts(front_factor_plain(front.clone(), P), P)
+    ref = front.numpy()
+    np.testing.assert_allclose(lpp @ np.swapaxes(lpp, 1, 2), ref[:, :P, :P],
+                               rtol=0, atol=1e-12)
+    np.testing.assert_allclose(lbp @ np.swapaxes(lpp, 1, 2), ref[:, P:, :P],
+                               rtol=0, atol=1e-12)
+    np.testing.assert_allclose(upd + lbp @ np.swapaxes(lbp, 1, 2),
+                               ref[:, P:, P:], rtol=0, atol=1e-12)
+
+
+def test_h4_plain_not_spd_front_is_nan_alone():
+    """A front that is not SPD gives NaN there; its neighbours in the batch
+    equal what they give alone."""
+    N, F1, P = 3, 40, 25
+    front = _spd_fronts(N, F1, 5)
+    front[1, P // 2, P // 2] = -1.0
+    out = front_factor_plain(front.clone(), P)
+    assert torch.isnan(out[1, :P, :P]).all()
+    assert torch.isnan(out[1, P:, :P]).all()
+    assert torch.isnan(out[1, P:, P:]).all()
+    for n in (0, 2):
+        alone = front_factor_plain(front[n:n + 1].clone(), P)
+        assert torch.isfinite(out[n]).all()
+        torch.testing.assert_close(out[n], alone[0], rtol=0, atol=0)
+
+
+@pytest.mark.parametrize("N,F1,P", [(2, 40, 7), (2, 70, 33), (2, 40, 39),
+                                    (3, 130, 64)])
+def test_h4_ignores_the_upper_triangle(N, F1, P):
+    """NaN in the strict upper triangle of the input does not reach the
+    lower-triangle outputs of ``front_factor`` (on the CPU: its plain
+    version)."""
+    front = _spd_fronts(N, F1, 9)
+    clean = torch.tril(front_factor(front.clone(), P))
+    up = torch.ones(F1, F1, dtype=torch.bool).triu(1)
+    dirty = torch.tril(front_factor(front.masked_fill(up, torch.nan), P))
+    assert torch.isfinite(dirty).all()
+    torch.testing.assert_close(dirty, clean, rtol=0, atol=0)
 
 
 def test_h2_h4_match_fused_leaf(interpret):
