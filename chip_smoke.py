@@ -5,6 +5,7 @@
     python3 chip_smoke.py --n 1000000 --m 40   # the north-star size, f32 only
     python3 chip_smoke.py --profile            # + torch.profiler breakdowns
     python3 chip_smoke.py --only-h4            # H4 alone; no final "ok" line
+    python3 chip_smoke.py --only-h15           # H1, H5 alone; no "ok" line
 
 Builds the host library and the CUDA kernels from this checkout, then
 
@@ -13,7 +14,9 @@ Builds the host library and the CUDA kernels from this checkout, then
    the same inputs, and times both with CUDA events: the forward kernels
    H1 matern_solve_e0, H2 leaf_assemble, H3 extend_add, H8 solve_e0 (on the packed smoothness-0.8 covariances of the first row
    chunk), and the backward kernels H5 matern_solve_e0_bwd (against torch
-   autograd through H1's plain version), solve_e0_bwd (K2 one to one, H8's
+   autograd through H1's plain version; both at F = 11, 21, 41, then at
+   their edge shapes on both routes, their padding bit for bit and a batch
+   with one matrix that is not SPD, ``h15_edge_phase``), solve_e0_bwd (K2 one to one, H8's
    backward: at H8's shape and on random SPD matrices), H6 extend_add_bwd
    (writing, as on the main path, through a strided view into child
    fronts' Schur blocks) and H7 leaf_assemble_bwd.  Then H4
@@ -27,8 +30,10 @@ Builds the host library and the CUDA kernels from this checkout, then
    of bench.py's data (rng(1988) uniform locations, z ~ N(0, 1), covparms
    (1.0, 0.2, 0.5), nugget 0.1).  At the default size the f64 value on the
    card is held against the port's plain path on the CPU in f64, and the
-   f32 value against the f64 one.  The launch counters of H1-H4 are reset
-   just before this phase and must be positive after it;
+   f32 value against the f64 one; at n > 1e5 the f32 value is held against
+   one f64 evaluation on the card.  The launch counters of H1-H4 are reset
+   just before this phase and must be positive after it; the host time of
+   the z-cache key of the numpy z is printed;
 3. gradient phase: ``torch.autograd.grad`` of ``loglik_fn(...)(z, covparms,
    nuggets)`` in (covparms, nuggets), with a scalar nugget (timed: median
    of 5 value+grad evaluations) and once with a vector of nuggets.  At the
@@ -63,7 +68,10 @@ conditioning matrices), that call's time.
 ``--only-h4`` is a tool for work on H4: it builds the kernels, runs the edge
 shapes and the level phase on the fixed table of the 14 level shapes of
 n=1e6, m=40 (no spec, no plan, no other phase) and exits without the final
-device line, so that such a run is never taken for a pass.
+device line, so that such a run is never taken for a pass.  ``--only-h15``
+is the same for H1 and H5: their edge shapes, then both at H15_FS on
+H15_N Z-ordered points (``morton_points``), with the shared-memory route's
+time beside the register route's.
 
 Every phase raises on failure (exit code != 0).  The last line of standard
 output is one JSON object naming the device.  Without a CUDA device, or
@@ -182,7 +190,8 @@ class KernelCheck:
         self.rows = []
 
     def run(self, label, make_inputs, kernel, plain, out_of, cost,
-            mutates=False, main=True, library=None, f32_rows=None):
+            mutates=False, main=True, library=None, f32_rows=None,
+            dtypes=(torch.float64, torch.float32)):
         """make_inputs(dtype) -> tuple of CUDA tensors; kernel/plain(*inputs)
         -> result; out_of(result) -> the compared tensor or tuple of tensors
         (each held to the rule with its own scale).  ``cost(dtype)`` ->
@@ -195,10 +204,11 @@ class KernelCheck:
         function on the same inputs (set up outside the timing), timed at
         the main shape only.  ``f32_rows``: a mask of the leading dimension;
         float32 is then held on those rows only, and to at most F32_CAP of
-        their scale (see F32_COND_MAX)."""
+        their scale (see F32_COND_MAX).  ``dtypes``: the kernel's dtypes
+        (the reference is the float64 plain version in any case)."""
         ref = _parts(out_of(plain(*make_inputs(torch.float64))))
         scales = [r.abs().max().item() for r in ref]
-        for dt in (torch.float64, torch.float32):
+        for dt in dtypes:
             ks = _parts(out_of(kernel(*make_inputs(dt))))
             ps = _parts(out_of(plain(*make_inputs(dt))))
             torch.cuda.synchronize()
@@ -302,6 +312,12 @@ def _parts(result):
     return tuple(t.double() for t in parts)
 
 
+def _host_ms(fn):
+    t0 = time.perf_counter()
+    fn()
+    return (time.perf_counter() - t0) * 1e3
+
+
 def _once(fn, args):
     a = torch.cuda.Event(enable_timing=True)
     b = torch.cuda.Event(enable_timing=True)
@@ -381,6 +397,219 @@ def _library_solve(C):
     return lambda: torch.linalg.solve(C, e0)
 
 
+def morton_points(n, F, seed):
+    """n uniform points of the unit square in Z-order, each conditioned on
+    the F - 1 points before it (slot 0 is the point itself): (locs, NN
+    int32, valid, resp) with no neighbour search, so cheap at n = 1e6.
+    resp, the slots that carry their nugget, is a seeded half of the valid
+    ones."""
+    rng = np.random.default_rng(seed)
+    locs = rng.uniform(size=(n, 2))
+    q = np.minimum(locs * 65536, 65535).astype(np.uint64)
+
+    def spread(v):
+        for shift, mask in ((8, 0x00FF00FF), (4, 0x0F0F0F0F),
+                            (2, 0x33333333), (1, 0x55555555)):
+            v = (v | (v << np.uint64(shift))) & np.uint64(mask)
+        return v
+
+    locs = locs[np.argsort(spread(q[:, 0]) | (spread(q[:, 1]) << np.uint64(1)),
+                           kind="stable")]
+    NN = np.arange(n)[:, None] - np.arange(F)[None, :]
+    valid = NN >= 0
+    resp = valid & (rng.random(size=(n, F)) < 0.5)
+    return locs, np.where(valid, NN, 0).astype(np.int32), valid, resp
+
+
+def _h15_inputs(locs, NN, valid, resp, nug, dev):
+    """make_inputs(dtype) of H1 for host arrays."""
+    def mk(dt):
+        return (torch.as_tensor(locs, dtype=dt, device=dev),
+                torch.as_tensor(NN, device=dev),
+                torch.as_tensor(valid, device=dev),
+                torch.as_tensor(resp, device=dev),
+                torch.as_tensor(nug, dtype=dt, device=dev),
+                torch.tensor(COVPARMS, dtype=torch.float64))
+    return mk
+
+
+def h15_run(h1, h5, locs, NN, valid, resp, label, main, seed, dev,
+            dtypes=(torch.float64, torch.float32), against_shared=False):
+    """H1 and H5 against their plain versions (H5's: torch autograd through
+    H1's) on one batch of host arrays, with the bound, and for H1 at the
+    main shape the time of ``torch.linalg.solve`` on the built matrices.
+    ``against_shared``: where F takes the register route, also time both
+    kernels on the shared-memory route (the route every F took before the
+    register route existed) on the same inputs, as ``shared_ms`` of the
+    rows."""
+    from gpvecchia_torch.kernels import matern_solve as MS
+    n_all, d = locs.shape
+    n, F = NN.shape
+    mk = _h15_inputs(locs, NN, valid, resp, np.full(n_all, NUGGET), dev)
+
+    def cost_h1(dt, extra=0):
+        # locs, nug_point, NN, valid, resp in; x out (+ extra bytes); the
+        # covariance build takes ~12 operations a pair
+        sz = _size(dt)
+        return (n_all * (d + 1) * sz + n * F * (4 + 2) + n * F * sz + extra,
+                n * (_chol_solve_ops(F) + 12 * F * (F + 1) / 2))
+
+    def lib_h1(dt):
+        locs_t, NNt, v, r, ng, cp = mk(dt)
+        C = torch.empty(n, F, F, dtype=dt, device=dev)
+        for s0 in range(0, n, 65536):
+            sl = slice(s0, s0 + 65536)
+            C[sl] = MS._cov_chunk(locs_t, NNt[sl].long(), v[sl], r[sl], ng,
+                                  cp.to(dev, dt))[0]
+        return _library_solve(C)
+
+    h1.run(label, mk, MS.matern_solve_e0, MS.matern_solve_e0_plain,
+           lambda x: x, cost_h1, main=main, library=lib_h1, dtypes=dtypes)
+
+    xbar = np.random.default_rng(seed).normal(size=(n, F))
+    bwd_in = {}
+
+    def mk_bwd(dt):
+        if dt not in bwd_in:
+            args = mk(dt)
+            x = MS.matern_solve_e0_plain(*args)
+            bwd_in[dt] = args + (x, torch.as_tensor(xbar, dtype=dt,
+                                                    device=dev))
+        return bwd_in[dt]
+
+    def cost_h5(dt):
+        # H1's inputs plus x and xbar in, dpar (n, 2) f64 and dslot out;
+        # ~20 operations a pair for the rebuild and the contraction
+        nbytes, _ = cost_h1(dt, extra=2 * n * F * _size(dt) + 16 * n)
+        return nbytes, n * (_chol_solve_ops(F) + 20 * F * (F + 1) / 2)
+
+    h5.run(label, mk_bwd, MS.matern_solve_e0_bwd, h5_plain,
+           lambda r: (r[0][:2], r[1]), cost_h5, main=main, dtypes=dtypes)
+    if not against_shared:
+        return
+    for dt in dtypes:
+        if MS.route(F, dt) != "registers":
+            continue
+        args, bargs = mk(dt), mk_bwd(dt)
+        saved = dict(MS.REGS_MAX_F)
+        MS.REGS_MAX_F[dt] = 0                   # every F on the shared route
+        try:
+            t1 = cuda_time(lambda: MS.matern_solve_e0(*args), 3)
+            t5 = cuda_time(lambda: MS.matern_solve_e0_bwd(*bargs), 3)
+        finally:
+            MS.REGS_MAX_F.update(saved)
+        name = str(dt).split(".")[-1]
+        for chk, t in ((h1, t1), (h5, t5)):
+            row = next(r for r in chk.rows
+                       if r["shape"] == label and r["dtype"] == name)
+            row["shared_ms"] = t
+            log(f"  {chk.name:19s} {label:34s} {name}: register route "
+                f"{row['ms']:.3f} ms, shared-memory route {t:.3f} ms")
+
+
+def _edge_fs():
+    """The F at which H1 and H5 are checked beyond the main path's: small
+    F, a warp's width, the instantiated sizes around 8, each route's
+    largest F and one on either side of the route boundary, with the dtypes
+    that take each (H1 and H5 refuse F above ``max_neighbors``)."""
+    from gpvecchia_torch.kernels import matern_solve as MS
+    out = {}
+    for dt in (torch.float64, torch.float32):
+        top = MS.max_neighbors(2, dt)
+        edge = MS.REGS_MAX_F[dt]
+        for F in sorted({1, 2, 7, 8, 9, 31, 32, 33, edge - 1, edge, edge + 1,
+                         top}):
+            if F <= top:
+                out.setdefault(F, []).append(dt)
+    return sorted(out.items())
+
+
+def h15_edge_phase(dev, seed, n=1001):
+    """H1 and H5 at their edge shapes on n Z-ordered points (n not a
+    multiple of the points a block) in both routes and dtypes, by
+    KernelCheck's rule.  Then: the register route's padding, a kernel call
+    at F against one at the next instantiated size with the extra slots
+    invalid, bit for bit, with 0 in the padded slots; and a batch in which
+    one point's conditioning matrix is not positive definite: NaN or Inf
+    in that point's row only, every other row held to the plain version."""
+    from gpvecchia_torch.kernels import matern_solve as MS
+    h1 = KernelCheck("matern_solve_e0 edge")
+    h5 = KernelCheck("matern_solve_e0_bwd edge")
+    for F, dtypes in _edge_fs():
+        locs, NN, valid, resp = morton_points(n, F, seed + F)
+        h15_run(h1, h5, locs, NN, valid, resp, f"n={n} F={F} ({MS.route(F, dtypes[-1])})",
+                False, seed + F, dev, dtypes=tuple(dtypes))
+
+    for F, FP in ((21, 24), (41, 48)):
+        locs, NN, valid, resp = morton_points(n, F, seed + F)
+        pad = FP - F
+        wide = [np.concatenate([a, np.full((n, pad), 0, a.dtype)], 1)
+                for a in (NN, valid, resp)]
+        xbar = np.random.default_rng(seed).normal(size=(n, F))
+        for dt in (torch.float64, torch.float32):
+            nug = np.full(len(locs), NUGGET)
+            a = _h15_inputs(locs, NN, valid, resp, nug, dev)(dt)
+            b = _h15_inputs(locs, *wide, nug, dev)(dt)
+            x_a, x_b = MS._launch(*a), MS._launch(*b)
+            xb = torch.as_tensor(xbar, dtype=dt, device=dev)
+            g_a = MS._launch_bwd(*a, x_a, xb)
+            g_b = MS._launch_bwd(*b, x_b, torch.cat(
+                [xb, xb.new_zeros(n, pad)], 1))
+            torch.cuda.synchronize()
+            if not (torch.equal(x_a, x_b[:, :F]) and not x_b[:, F:].any()
+                    and torch.equal(g_a[0], g_b[0])
+                    and torch.equal(g_a[1], g_b[1][:, :F])
+                    and not g_b[1][:, F:].any()):
+                raise AssertionError(f"H1/H5 F={F} {dt}: padding to {FP} is "
+                                     f"not exact")
+    log(f"  H1/H5 padding: F=21 and F=41 equal their explicitly padded "
+        f"F=24 and F=48 bit for bit (x, dpar, dslot), 0 in the padded "
+        f"slots, f64 and f32")
+
+    # one point whose matrix is not SPD: a response slot's nugget of
+    # -2 sig2 that enters no other row, so that pivot is negative exactly
+    sig2 = COVPARMS[0]
+    for F in (41, 72):
+        locs, NN, valid, resp = morton_points(n, F, seed + 2 * F)
+        p0, s0 = n // 2, 5
+        q = NN[p0, s0]
+        resp = resp & (NN != q)
+        resp[p0, s0] = True
+        nug = np.full(len(locs), NUGGET)
+        nug[q] = -2.0 * sig2
+        xbar = np.random.default_rng(seed).normal(size=(n, F))
+        rows = np.arange(n) != p0
+        ref = None
+        for dt in (torch.float64, torch.float32):
+            if F > MS.max_neighbors(2, dt):
+                continue
+            args = _h15_inputs(locs, NN, valid, resp, nug, dev)(dt)
+            x_k = MS._launch(*args)
+            x_p = MS.matern_solve_e0_plain(*args)
+            xb = torch.as_tensor(xbar, dtype=dt, device=dev)
+            dpar_k, dslot_k = MS._launch_bwd(*args, x_p, xb)
+            dpar_p, dslot_p = MS.matern_solve_e0_bwd_plain(*args, x_p, xb)
+            torch.cuda.synchronize()
+            outs = [(x_k, x_p), (dpar_k, dpar_p), (dslot_k, dslot_p)]
+            if ref is None:
+                ref = [p.double() for _, p in outs]
+            for (k, p), r in zip(outs, ref):
+                if bool(torch.isfinite(k[p0]).all()) or not bool(
+                        torch.isfinite(k[rows]).all()):
+                    raise AssertionError(f"H1/H5 F={F} {dt}: a matrix not "
+                                         f"SPD did not give NaN/Inf in its "
+                                         f"row only")
+                k, p, r = k.double()[rows], p.double()[rows], r[rows]
+                scale = r.abs().max().item()
+                err, held, tol = _rule(k, p, r, scale, dt)
+                if not held <= tol:
+                    raise AssertionError(f"H1/H5 F={F} {dt}: rows beside "
+                                         f"the non-SPD one: {held:.3e} > "
+                                         f"{tol:.3e}")
+    log(f"  H1/H5 with one matrix not SPD (F=41 registers, F=72 shared): "
+        f"NaN/Inf in its row only, the other {n - 1} rows held, f64 and f32")
+
+
 def kernel_phase(spec, mf, seed, dev):
     from gpvecchia_torch.geometry.neighbors import find_ordered_nn
     from gpvecchia_torch.geometry.sgv import which_cond_on_latent
@@ -390,11 +619,11 @@ def kernel_phase(spec, mf, seed, dev):
     rng = np.random.default_rng(seed)
     checks = {}
 
-    # ---- H1 and H5 at F = 11, 21, 41 on this spec's points ----
+    # ---- H1 and H5 at F = 11, 21, 41 on this spec's points, then at their
+    # edge shapes ----
     h1 = checks["matern_solve_e0"] = KernelCheck("matern_solve_e0")
     h5 = checks["matern_solve_e0_bwd"] = KernelCheck("matern_solve_e0_bwd")
     m = spec.m
-    n_all, d = spec.locsord.shape
     for F in (11, 21, 41):
         if F <= m + 1:
             NN = spec.NNarray[:, :F]
@@ -402,61 +631,10 @@ def kernel_phase(spec, mf, seed, dev):
             NN = find_ordered_nn(spec.locsord, F - 1)
         cond = which_cond_on_latent(NN) & (NN >= 0)
         valid = NN >= 0
-        nug = np.full(n_all, NUGGET)
-        host = dict(NN=np.where(valid, NN, 0).astype(np.int32), valid=valid,
-                    resp=valid & ~cond)
-
-        def mk(dt, host=host, nug=nug):
-            return (torch.as_tensor(spec.locsord, dtype=dt, device=dev),
-                    torch.as_tensor(host["NN"], device=dev),
-                    torch.as_tensor(host["valid"], device=dev),
-                    torch.as_tensor(host["resp"], device=dev),
-                    torch.as_tensor(nug, dtype=dt, device=dev),
-                    torch.tensor(COVPARMS, dtype=torch.float64))
-
-        label = f"n={NN.shape[0]} F={F}"
-        n = NN.shape[0]
-
-        def cost_h1(dt, n=n, F=F, extra=0):
-            # locs, nug_point, NN, valid, resp in; x out (+ extra bytes);
-            # the covariance build takes ~12 operations a pair
-            sz = _size(dt)
-            return (n_all * (d + 1) * sz + n * F * (4 + 2) + n * F * sz
-                    + extra, n * (_chol_solve_ops(F) + 12 * F * (F + 1) / 2))
-
-        def lib_h1(dt, mk=mk, n=n, F=F):
-            locs, NNt, v, r, ng, cp = mk(dt)
-            C = torch.empty(n, F, F, dtype=dt, device=dev)
-            for s0 in range(0, n, 65536):
-                sl = slice(s0, s0 + 65536)
-                C[sl] = MS._cov_chunk(locs, NNt[sl].long(), v[sl], r[sl], ng,
-                                      cp.to(dev, dt))[0]
-            return _library_solve(C)
-
-        h1.run(label, mk, MS.matern_solve_e0, MS.matern_solve_e0_plain,
-               lambda x: x, cost_h1, main=F == m + 1, library=lib_h1)
-
-        xbar = rng.normal(size=NN.shape)
-        bwd_in = {}
-
-        def mk_bwd(dt, mk=mk, xbar=xbar):
-            if dt not in bwd_in:
-                args = mk(dt)
-                x = MS.matern_solve_e0_plain(*args)
-                bwd_in[dt] = args + (x, torch.as_tensor(xbar, dtype=dt,
-                                                        device=dev))
-            return bwd_in[dt]
-
-        def cost_h5(dt, n=n, F=F):
-            # H1's inputs plus x and xbar in, dpar (n, 2) f64 and dslot out;
-            # ~20 operations a pair for the rebuild and the contraction
-            sz = _size(dt)
-            nbytes, _ = cost_h1(dt, n, F, extra=2 * n * F * sz + 16 * n)
-            return nbytes, n * (_chol_solve_ops(F) + 20 * F * (F + 1) / 2)
-
-        h5.run(label, mk_bwd, MS.matern_solve_e0_bwd, h5_plain,
-               lambda r: (r[0][:2], r[1]), cost_h5, main=F == m + 1)
-        del bwd_in
+        h15_run(h1, h5, spec.locsord, np.where(valid, NN, 0).astype(np.int32),
+                valid, valid & ~cond, f"n={NN.shape[0]} F={F}",
+                F == m + 1, seed + F, dev)
+    h15_edge_phase(dev, seed)
 
     # ---- H8 solve_e0 and solve_e0_bwd at the general path's shape: the
     # packed smoothness-0.8 covariances of the first row chunk ----
@@ -645,6 +823,11 @@ def kernel_phase(spec, mf, seed, dev):
         del dfront
     return checks
 
+
+# ``--only-h15``: H1 and H5 at these F on H15_N Z-ordered points (F = 72
+# takes the shared-memory route in both dtypes)
+H15_FS = (11, 21, 41, 72)
+H15_N = 1_000_000
 
 # (N, F1, P) of the 14 levels of the multifrontal plan of n=1e6, m=40, SGV,
 # seed 1988 (root first, leaf last): what ``--only-h4`` runs without a spec
@@ -1245,12 +1428,18 @@ def main():
                     help="a tool for work on H4: build, H4's edge shapes and "
                          "H4 at the 14 level shapes of n=1e6, m=40, and "
                          "nothing else; prints no final device line")
+    ap.add_argument("--only-h15", action="store_true",
+                    help="a tool for work on H1 and H5: build, their edge "
+                         "shapes and both kernels at F = 11, 21, 41 and 72 "
+                         "on 1e6 Z-ordered points, and nothing else; prints "
+                         "no final device line")
     args = ap.parse_args()
 
     if not torch.cuda.is_available():
         sys.exit("chip_smoke: no CUDA device visible")
     import gpvecchia_torch as gt
     from gpvecchia_torch.csrc import cuda, host
+    from gpvecchia_torch.inference.likelihood import zkey
     from gpvecchia_torch.kernels import matern_solve as MS
     from gpvecchia_torch.linalg import frontal as FR
     from gpvecchia_torch.plan import get_mf_plan, get_plan
@@ -1276,7 +1465,7 @@ def main():
     log(f"CUDA kernel library build: {time.perf_counter() - t0:.1f} s "
         f"({cuda.library_path().name})")
     for line in cuda.build_log.splitlines():
-        if "registers" in line or "spill" in line:
+        if any(w in line for w in ("entry function", "registers", "spill")):
             log(f"  ptxas: {line.strip()}")
 
     dev = torch.device("cuda:0")
@@ -1285,6 +1474,21 @@ def main():
         h4_edge_phase(dev, args.seed)
         rows, _ = h4_level_phase(H4_LEVELS_1E6, dev, args.seed)
         print(json.dumps({"h4_levels": rows, "smi": smi}))
+        return
+    if args.only_h15:
+        log("H1 and H5 alone (no spec, no plan; not a pass of this script):")
+        h15_edge_phase(dev, args.seed)
+        h1 = KernelCheck("matern_solve_e0")
+        h5 = KernelCheck("matern_solve_e0_bwd")
+        for F in H15_FS:
+            locs, NN, valid, resp = morton_points(H15_N, F, args.seed)
+            h15_run(h1, h5, locs, NN, valid, resp,
+                    f"Z-order n={H15_N} F={F} ({MS.route(F, torch.float32)})",
+                    F == 41, args.seed + F, dev, against_shared=True)
+            del locs, NN, valid, resp
+        print(json.dumps({"h15": {"matern_solve_e0": h1.rows,
+                                  "matern_solve_e0_bwd": h5.rows},
+                          "smi": smi}))
         return
 
     # ---- host: spec + plan ----
@@ -1346,6 +1550,27 @@ def main():
     if min(launches.values()) <= 0:
         raise AssertionError(f"a kernel of the main path never launched: "
                              f"{launches}")
+    if big:
+        # f32 against f64 end to end: one f64 evaluation at this size
+        ll64 = gt.vecchia_likelihood(z, spec, COVPARMS, NUGGET, device="cuda",
+                                     dtype=torch.float64)
+        ll32 = res["float32"]["loglik"]
+        r32 = abs(ll32 - ll64) / abs(ll64)
+        res["float64_once"] = dict(loglik=ll64, rel_f32_f64=r32)
+        log(f"  cuda float64 once: loglik {ll64!r}; f32 {ll32!r}; rel diff "
+            f"f32 vs f64 {r32:.3e} (tol {SLICE_F32_REL:g})")
+        if not r32 <= SLICE_F32_REL:
+            raise AssertionError("slice: f32 disagrees with f64")
+        # the f64 run's device arrays stay cached in the plan (1.13 GiB at
+        # n=1e6): drop them, so that the later phases' peaks are f32's
+        cache = get_plan(spec).cache
+        for k in [k for k in cache if torch.float64 in k]:
+            del cache[k]
+        torch.cuda.empty_cache()
+    key_ms = statistics.median(_host_ms(lambda: zkey(z)) for _ in range(5))
+    res["zkey_ms"] = key_ms
+    log(f"  z-cache key of the numpy z ({z.size} values, full digest): "
+        f"{key_ms:.3f} ms on the host")
 
     if not big:
         t0 = time.perf_counter()
@@ -1382,9 +1607,10 @@ def main():
         profile_eval(spec, z, grad=True, covparms=GEN_COVPARMS)
 
     ms_cu = "gpvecchia_torch/csrc/matern_solve.cu"
+    regs_cu = "gpvecchia_torch/csrc/matern_regs.cuh"  # H1, H5 at small F
     fr_cu = "gpvecchia_torch/csrc/frontal.cu"
     crout = "gpvecchia_tpu/kernels/pallas_crout.py"
-    src = {"matern_solve_e0": ms_cu, "matern_solve_e0_bwd": ms_cu,
+    src = {"matern_solve_e0": regs_cu, "matern_solve_e0_bwd": regs_cu,
            "solve_e0": ms_cu, "solve_e0_bwd": ms_cu}
     replaces = {
         "matern_solve_e0": f"{crout}:268",

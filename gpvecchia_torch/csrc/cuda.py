@@ -1,10 +1,11 @@
 """Build, load and call the port's CUDA kernels.
 
-All ``*.cu`` files of this directory are compiled, one ``nvcc`` process per
-file run in parallel, and linked into one shared library with a plain C
+All ``*.cu`` files of this directory (which include its ``*.cuh`` headers)
+are compiled, one ``nvcc`` process per file run in parallel, and linked into one shared library with a plain C
 interface (no PyTorch headers, so the build takes seconds), loaded with
 ctypes.  The library lands in the port's
-build directory under a name keyed by a hash of the sources and the flags.
+build directory under a name keyed by a hash of the sources, the headers
+and the flags.
 Nothing is built when the package is imported: the first CUDA launch
 builds.  A missing ``nvcc``, a failed build or a failed launch raises; there
 is no fallback to the plain PyTorch versions.
@@ -36,6 +37,10 @@ _SIGNATURES = {
                             _I, _P],
     "gpv_matern_solve_e0_bwd": [_P, _I, _P, _P, _P, _P, _I, _I, _D, _D, _I,
                                 _P, _P, _P, _P, _I, _P],
+    "gpv_matern_solve_e0_regs": [_P, _I, _P, _P, _P, _P, _I, _I, _D, _D, _I,
+                                 _P, _P],
+    "gpv_matern_solve_e0_bwd_regs": [_P, _I, _P, _P, _P, _P, _I, _I, _D, _D,
+                                     _I, _P, _P, _P, _P, _P],
     "gpv_solve_e0": [_P, _I, _I, _P, _I, _P],
     "gpv_solve_e0_bwd": [_P, _I, _I, _P, _P, _P, _I, _P],
     "gpv_leaf_assemble": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _P, _P],
@@ -57,7 +62,7 @@ def sources() -> list[Path]:
 
 def library_path() -> Path:
     h = hashlib.sha256()
-    for src in sources():
+    for src in sources() + sorted(HERE.glob("*.cuh")):
         h.update(src.name.encode())
         h.update(src.read_bytes())
     h.update(" ".join(FLAGS).encode())

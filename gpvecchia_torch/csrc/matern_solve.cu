@@ -2,49 +2,59 @@
 // conditioning set, its Cholesky factor, and x = C^{-1} e0.
 // H5 matern_solve_e0_bwd: its backward, fused with the covariance rebuild
 // and the contraction onto (sig2, rho) and the per-slot nuggets.
-// solve_e0_bwd: the same backward on a given packed covariance.
+// H8 solve_e0 and solve_e0_bwd: the same solve and backward on a given
+// packed covariance.
 //
 // H1 replaces the TPU kernel gpvecchia_tpu/kernels/pallas_crout.py
 // `_fused_kernel` (pallas_call at :268, entry `fused_matern_solve`), whose
 // body builds the packed covariance from transposed caches, factors it and
-// solves against e0 with the point batch on the 128-wide lane axis.
-//
-// What bounds it on an H100: work on the chip, not memory.  A point reads F
-// neighbor ids, F*d coordinates and F masks (~0.5 KB at F=41, d=2) and does
-// ~F^3/3 FMAs (~23k at F=41), so the kernel sits far above the memory
-// roofline.  It does not reach the FMA peak either: at n=1e6, F=41 in f32
-// it runs ~1 TFLOP/s by that count (H100 80GB HBM3, 700 W), because one
-// warp walks the F pivots in order with a __syncwarp per step and only the
-// F-k lanes below pivot k have work.  The limit is this serial chain per
-// point and how many points are in flight.
-//
-// Design: one warp per point (the batched-small-matrix layout of
-// arXiv:2403.07412).  The point's F x F matrix lives in shared memory,
-// column-major, lanes over rows, so every column op is a conflict-free
-// strided sweep.  Coordinates are gathered inside the kernel, so no
-// (n, F(F+1)/2) distance array exists in device memory.  The factorization
-// is right-looking; the forward and backward substitutions reuse the factor
-// in place.  A non-SPD pivot is not clamped and the warp does not exit
-// early: sqrt of a negative pivot is NaN and a zero pivot gives Inf, which
-// poison only this point's row; the caller turns such rows into e0 and
-// counts them.  Shared memory per warp is (F*F + F*d + 3F) values for H1 and
-// (F*F + F*d + 4F) for H5, so the wrapper raises for F above the 48 KB per
-// block bound it states.
-//
-// H5 replaces K2, `_solve_e0_bwd_kernel` (pallas_call at pallas_crout.py:155,
+// solves against e0 with the point batch on the 128-wide lane axis.  H5
+// replaces K2, `_solve_e0_bwd_kernel` (pallas_call at :155,
 // `_solve_e0_bwd_impl`), together with the XLA covariance rebuild
 // `_rebuild_cp` (:359) and the Matern VJP it feeds (kernels/covariance.py
-// `_matern_bwd`) in the fused solver's backward (pallas_crout.py:315-353).
-// Per point it rebuilds C exactly as H1 does (same device routines),
-// refactors it, solves w = C^{-1} xbar, and forms K2's packed cotangent
-// gbar[i<=j] = -(w_i x_j + w_j x_i) (-w_i x_i on the diagonal) pair by pair
-// in registers, contracting it at once: d sig2 += gbar g(s), d rho +=
-// gbar sig2 g'(s) (-s/rho) over valid pairs, and the diagonal gbar_jj of a
-// valid response-conditioned slot is that slot's nugget cotangent.  No
-// (n, P) array is written; the outputs are (n, 2) partial sums (double in
-// both precisions) and (n, F) slot cotangents, which the wrapper reduces.
-// Bound like H1: about twice its work (the refactor plus one more solve and
-// the pair loop).
+// `_matern_bwd`) in the fused solver's backward (pallas_crout.py:315-353):
+// per point it rebuilds C as H1 does, refactors it, solves w = C^{-1} xbar
+// and contracts K2's packed cotangent gbar[i>=j] = -(w_i x_j + w_j x_i)
+// (-w_i x_i on the diagonal) at once with dC/dsig2 = g(s) and dC/drho =
+// sig2 g'(s) (-s/rho) over the valid pairs (double partial sums in both
+// precisions); the diagonal gbar_jj of a valid response-conditioned slot is
+// that slot's nugget cotangent.  No (n, P) array is written: the outputs
+// are (n, 2) partial sums and (n, F) slot cotangents, which the wrapper
+// reduces.
+//
+// What bounds them on an H100: work on the chip, not memory.  A point reads
+// F neighbor ids, F*d coordinates and F masks (~0.5 KB at F=41, d=2) and
+// does ~F^3/3 FMAs (~23k at F=41) and F(F+1)/2 covariance evaluations, so
+// both sit far above the memory roofline.  They do not reach the FMA peak
+// either: one warp walks a point's F pivots in order, a serial chain of a
+// shuffle, a reciprocal square root and a shared-memory round trip each,
+// and the lanes do the trailing update of their own rows only.  The limit
+// is instruction issue under that chain and how many warps an SM holds
+// (registers).
+//
+// Two routes, chosen by the wrapper by F and dtype alone (route() in
+// kernels/matern_solve.py):
+//  * the register route (matern_regs.cuh, instantiated in matern_regs_f32.cu
+//    for F <= 64 and matern_regs_f64.cu for F <= 32): F padded with
+//    identity slots to a multiple of 8, each lane's rows of C in registers,
+//    C built into a packed triangle with the lanes spread evenly over the
+//    pairs, one pivot-column store and 16-byte broadcasts a pivot (no
+//    read-modify-write of the matrix in shared memory), L written once for
+//    the backward substitution; H5 keeps dC/dsig2 and dC/drho from its
+//    build, so its pair loop does no transcendental.  Details there.
+//  * the shared-memory route (this file, above those F): one warp per point
+//    (the batched-small-matrix layout of arXiv:2403.07412), the point's F x F
+//    matrix in shared memory, column-major, lanes over rows, so every column
+//    op is a conflict-free strided sweep; right-looking factorization, the
+//    substitutions reuse the factor in place.  Shared memory per warp is
+//    (F*F + F*d + 3F) values for H1 and (F*F + F*d + 4F) for H5, so the
+//    wrapper raises for F above the 48 KB per block bound it states, on both
+//    routes.
+// Coordinates are gathered inside the kernels, so no (n, F(F+1)/2) distance
+// array exists in device memory.  A non-SPD pivot is not clamped and the
+// warp does not exit early: a negative pivot gives NaN and a zero pivot
+// Inf, which poison only this point's row; the caller turns such rows into
+// e0 and counts them.
 //
 // H8 solve_e0 replaces K3, `_solve_e0_kernel` (pallas_call at
 // pallas_crout.py:140, `_solve_e0_impl`, entry `packed_solve_e0`): the
@@ -65,43 +75,13 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "matern_common.cuh"
+
 namespace {
 
-template <typename T>
-__device__ __forceinline__ T matern_corr(T dist, T rho, int nu_idx, T* dgds) {
-  // g(s) and dg/ds at s = dist / rho; g = 1 and dg/ds = 0 at dist == 0
-  // (kernels/covariance.py `_correlation` and `matern_dgds`)
-  if (!(dist > T(0))) {
-    if (dgds) *dgds = T(0);
-    return T(1);
-  }
-  const T s = dist / rho;
-  if (nu_idx == 0) {
-    const T e = exp(-s);
-    if (dgds) *dgds = -e;
-    return e;
-  }
-  if (nu_idx == 1) {
-    const T r3 = T(1.7320508075688772);
-    const T e = exp(-r3 * s);
-    if (dgds) *dgds = T(-3) * s * e;
-    return (T(1) + r3 * s) * e;
-  }
-  const T r5 = T(2.2360679774997896);
-  const T e = exp(-r5 * s);
-  if (dgds) *dgds = -(T(5) / T(3)) * s * (T(1) + r5 * s) * e;
-  return (T(1) + r5 * s + T(5) * s * s / T(3)) * e;
-}
-
-template <typename T>
-__device__ __forceinline__ T pair_dist(const T* pts, int i, int j, int d) {
-  T d2 = T(0);
-  for (int c = 0; c < d; ++c) {
-    const T t = pts[i * d + c] - pts[j * d + c];
-    d2 += t * t;
-  }
-  return d2 > T(0) ? sqrt(d2) : T(0);
-}
+using gpv::matern_corr;
+using gpv::pair_dist;
+using gpv::warp_sum;
 
 // Gather point p's coordinates, validity and diagonal nugget adds into the
 // warp's shared memory, then fill the lower triangle of C (column-major):
@@ -174,12 +154,6 @@ __device__ void solve_inplace(const T* C, const T* dg, T* b, int F,
     for (int i = lane; i < k; i += 32) b[i] -= C[i * F + k] * xk;
     __syncwarp();
   }
-}
-
-template <typename T>
-__device__ __forceinline__ T warp_sum(T v) {
-  for (int o = 16; o > 0; o >>= 1) v += __shfl_down_sync(0xffffffffu, v, o);
-  return v;
 }
 
 template <typename T>

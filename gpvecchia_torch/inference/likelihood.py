@@ -236,8 +236,22 @@ def _covmodel_key(covmodel):
     if not _is_matrix(covmodel):
         return ("callable", covmodel)
     arr = np.ascontiguousarray(_as_array(covmodel))
-    digest = hashlib.blake2b(arr.tobytes(), digest_size=16).hexdigest()
-    return ("matrix", id(covmodel), arr.shape, digest)
+    return ("matrix", id(covmodel), arr.shape, _digest(arr))
+
+
+def _digest(arr: np.ndarray) -> str:
+    return hashlib.blake2b(np.ascontiguousarray(arr).tobytes(),
+                           digest_size=16).hexdigest()
+
+
+def zkey(z):
+    """Cache key of the data z: a torch tensor by (id, data_ptr, version),
+    so an in-place update changes it; anything else by id, shape, dtype and
+    a digest of its whole content."""
+    if torch.is_tensor(z):
+        return ("t", id(z), z.data_ptr(), z._version)
+    z = np.asarray(z)
+    return ("a", id(z), z.shape, str(z.dtype), _digest(z))
 
 
 def loglik_fn(spec, covmodel="matern", *, device="cuda",
@@ -247,7 +261,7 @@ def loglik_fn(spec, covmodel="matern", *, device="cuda",
     with_aux=True returns (loglik, {"n_dropped_rows": count}).  The
     parameter-free data preparation is cached per z: a torch tensor is
     keyed on (id, data_ptr, version), so an in-place update invalidates
-    it; a numpy array on a content fingerprint.  The result is
+    it; a numpy array on a digest of its whole content.  The result is
     differentiable in covparms and nuggets (torch.autograd), whose
     gradients come back on their own devices and dtypes.
     """
@@ -261,16 +275,8 @@ def loglik_fn(spec, covmodel="matern", *, device="cuda",
     dev = _device_arrays(plan, device, dtype)
     zcache = {}
 
-    def _zkey(z):
-        if torch.is_tensor(z):
-            return ("t", id(z), z.data_ptr(), z._version)
-        z = np.asarray(z)
-        s = max(1, z.size // 64)
-        sample = np.ascontiguousarray(z.reshape(-1)[::s])
-        return ("a", id(z), z.shape, str(z.dtype), sample.tobytes())
-
     def fn(z, covparms, nuggets):
-        zk = _zkey(z)
+        zk = zkey(z)
         if zcache.get("key") != zk:
             zt = torch.as_tensor(np.asarray(z) if not torch.is_tensor(z)
                                  else z).to(device, dtype)

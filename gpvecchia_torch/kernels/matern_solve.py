@@ -10,10 +10,14 @@ H5 replaces K2, ``_solve_e0_bwd_kernel`` (``pallas_call`` at :155,
 and the Matern VJP that the fused solver's backward (:302-356) runs around
 it.  H8 replaces K3, ``_solve_e0_kernel`` (``pallas_call`` at :140,
 ``_solve_e0_impl``, entry ``packed_solve_e0``).  ``solve_e0_bwd`` is K2 one
-to one.  The CUDA kernels are
-``csrc/matern_solve.cu``: one warp per point with the point's matrix in
-shared memory; they are bound by the serial pivot chain of each warp, not by
-memory (see the source note there).  Each ``*_plain`` function is the plain
+to one.  H1 and H5 take one of two CUDA routes, by F and dtype alone
+(``route``): up to ``REGS_MAX_F`` the register route
+(``csrc/matern_regs.cuh``: one warp a point, F padded with identity slots to
+a multiple of 8, each lane's rows of the matrix in registers), above it the
+shared-memory route (``csrc/matern_solve.cu``: one warp a point, the
+matrix in shared memory), which H8 and ``solve_e0_bwd`` also take.  None is
+bound by memory (see the note at the head of ``csrc/matern_solve.cu``).
+Each ``*_plain`` function is the plain
 PyTorch version (batched ``torch.linalg.cholesky_ex`` and
 ``cholesky_solve``); CPU tensors take it, CUDA tensors the kernel.
 
@@ -39,6 +43,16 @@ __all__ = ["matern_solve_e0", "matern_solve_e0_plain", "matern_solve_e0_bwd",
 _SMEM_PER_BLOCK = 48 * 1024     # static-launch shared-memory bound
 _MAX_WARPS = 8
 _FWD_VECS, _BWD_VECS = 3, 4     # F-vectors per warp beside C and coordinates
+# H1 and H5 take the register route (csrc/matern_regs.cuh) up to this F,
+# its largest instance in csrc/matern_regs_f32.cu and _f64.cu, and the
+# shared-memory route (csrc/matern_solve.cu) above it
+REGS_MAX_F = {torch.float32: 64, torch.float64: 32}
+
+
+def route(F: int, dtype: torch.dtype) -> str:
+    """The CUDA route of H1 and H5 at F and dtype: "registers" or
+    "shared".  Chosen by F and dtype alone."""
+    return "registers" if F <= REGS_MAX_F[dtype] else "shared"
 
 
 def _smem_per_warp(F: int, d: int, itemsize: int, vecs: int) -> int:
@@ -206,10 +220,15 @@ def _launch(locs, NN, valid, resp, nug_point, covparms):
     locs, NN, valid, resp, nug_point = (
         t.contiguous() for t in (locs, NN, valid, resp, nug_point))
     x = torch.empty(n, F, dtype=locs.dtype, device=locs.device)
-    rc = cuda.entry("gpv_matern_solve_e0", locs.dtype)(
-        locs.data_ptr(), d, NN.data_ptr(), valid.data_ptr(), resp.data_ptr(),
-        nug_point.data_ptr(), n, F, sig2, rho, nu_idx, x.data_ptr(), warps,
-        cuda.stream(locs.device))
+    args = (locs.data_ptr(), d, NN.data_ptr(), valid.data_ptr(),
+            resp.data_ptr(), nug_point.data_ptr(), n, F, sig2, rho, nu_idx,
+            x.data_ptr())
+    if route(F, locs.dtype) == "registers":
+        rc = cuda.entry("gpv_matern_solve_e0_regs", locs.dtype)(
+            *args, cuda.stream(locs.device))
+    else:
+        rc = cuda.entry("gpv_matern_solve_e0", locs.dtype)(
+            *args, warps, cuda.stream(locs.device))
     cuda.check(rc, "matern_solve_e0")
     matern_solve_e0.launches += 1
     return x
@@ -225,11 +244,15 @@ def _launch_bwd(locs, NN, valid, resp, nug_point, covparms, x, xbar):
         t.contiguous() for t in (locs, NN, valid, resp, nug_point, x, xbar))
     dpar = torch.empty(n, 2, dtype=torch.float64, device=locs.device)
     dslot = torch.empty(n, F, dtype=locs.dtype, device=locs.device)
-    rc = cuda.entry("gpv_matern_solve_e0_bwd", locs.dtype)(
-        locs.data_ptr(), d, NN.data_ptr(), valid.data_ptr(), resp.data_ptr(),
-        nug_point.data_ptr(), n, F, sig2, rho, nu_idx, x.data_ptr(),
-        xbar.data_ptr(), dpar.data_ptr(), dslot.data_ptr(), warps,
-        cuda.stream(locs.device))
+    args = (locs.data_ptr(), d, NN.data_ptr(), valid.data_ptr(),
+            resp.data_ptr(), nug_point.data_ptr(), n, F, sig2, rho, nu_idx,
+            x.data_ptr(), xbar.data_ptr(), dpar.data_ptr(), dslot.data_ptr())
+    if route(F, locs.dtype) == "registers":
+        rc = cuda.entry("gpv_matern_solve_e0_bwd_regs", locs.dtype)(
+            *args, cuda.stream(locs.device))
+    else:
+        rc = cuda.entry("gpv_matern_solve_e0_bwd", locs.dtype)(
+            *args, warps, cuda.stream(locs.device))
     cuda.check(rc, "matern_solve_e0_bwd")
     matern_solve_e0_bwd.launches += 1
     return dpar, dslot

@@ -162,6 +162,24 @@ def test_zcache_follows_in_place_updates():
     np.testing.assert_allclose(b, c, rtol=1e-13)
 
 
+def test_zcache_sees_an_edit_anywhere_in_a_numpy_z():
+    """A numpy z is keyed on its whole content: an in-place edit of an
+    element that a sampled fingerprint (every len/64-th) would skip gives
+    the fresh likelihood, equal to a new ``loglik_fn``'s."""
+    locs, z, _ = _data(n=150)
+    spec = GT.vecchia_specify(locs, m=8)
+    fn = GT.loglik_fn(spec, device="cpu")
+    z = z.copy()
+    a = float(fn(z, (1.0, 0.3, 0.5), 0.2))
+    z[1] += 3.0                        # 150 // 64 = 2: index 1 is unsampled
+    b = float(fn(z, (1.0, 0.3, 0.5), 0.2))
+    spec2 = GT.vecchia_specify(locs, m=8)
+    c = float(GT.loglik_fn(spec2, device="cpu")(z.copy(), (1.0, 0.3, 0.5),
+                                                0.2))
+    assert a != b
+    np.testing.assert_allclose(b, c, rtol=0, atol=0)
+
+
 def test_float32_on_cpu_close_to_float64():
     locs, z, _ = _data(n=300)
     spec = GT.vecchia_specify(locs, m=10)

@@ -140,6 +140,61 @@ def test_h1_h5_share_the_shared_memory_bound(dtype):
         ms._launch_bwd(locs, NN, valid, valid, nug, cp, x, x)
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("F0,F1", [(5, 8), (21, 24)])
+def test_plain_versions_ignore_identity_padding(F0, F1, dtype):
+    """H1 and H5 round F up to an instantiated size with invalid slots,
+    which the covariance build identity-extends: C becomes [C 0; 0 I].  The
+    plain versions give the unpadded x, dpar and dslot on such inputs, and
+    exactly 0 in the padded slots of x and dslot.  The shared slots agree to
+    a few units in the last place, not bit for bit: LAPACK's Cholesky splits
+    a matrix recursively at a point that depends on its size, and torch sums
+    dpar over (F, F) in a shape-dependent order.  (The kernel's padding is
+    exact by construction; ``chip_smoke.py`` checks that on the card.)"""
+    plan, _ = _spec_inputs(n=400, m=F0 - 1)
+    n, pad = plan.NN.shape[0], F1 - F0
+    resp = plan.valid & ~plan.cond
+
+    def padded(a, fill):
+        return torch.as_tensor(np.concatenate(
+            [a, np.full((n, pad), fill, a.dtype)], 1))
+
+    locs = torch.as_tensor(plan.locs, dtype=dtype)
+    nug = torch.full((plan.n_all,), 0.15, dtype=dtype)
+    cp = torch.tensor([1.0, 0.2, 0.5])
+    small = (locs, torch.as_tensor(plan.NN), torch.as_tensor(plan.valid),
+             torch.as_tensor(resp), nug, cp)
+    big = (locs, padded(plan.NN, 0), padded(plan.valid, False),
+           padded(resp, False), nug, cp)
+    xbar = np.random.default_rng(1).normal(size=(n, F0))
+    x0 = matern_solve_e0_plain(*small)
+    x1 = matern_solve_e0_plain(*big)
+    dpar0, dslot0 = ms.matern_solve_e0_bwd_plain(
+        *small, x0, torch.as_tensor(xbar, dtype=dtype))
+    dpar1, dslot1 = ms.matern_solve_e0_bwd_plain(
+        *big, x1, padded(xbar, 0.0).to(dtype))
+    assert x1.shape == (n, F1) and dslot1.shape == (n, F1)
+    assert not x1[:, F0:].any() and not dslot1[:, F0:].any()
+    eps = torch.finfo(dtype).eps
+    for got, want, ulps in ((x1[:, :F0], x0, 8), (dslot1[:, :F0], dslot0, 8),
+                            (dpar1, dpar0, 1024)):
+        np.testing.assert_allclose(
+            got.numpy(), want.numpy(), rtol=0,
+            atol=ulps * eps * want.abs().max().item())
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_h1_h5_route_by_f_and_dtype(dtype):
+    """The register route takes F up to its largest instantiated size (a
+    multiple of 8, since F is padded to one), the shared-memory route the
+    rest of what ``max_neighbors`` accepts; nothing else decides."""
+    top = ms.REGS_MAX_F[dtype]
+    assert top % 8 == 0 and top < max_neighbors(2, dtype)
+    assert [ms.route(F, dtype) for F in (1, top, top + 1,
+                                         max_neighbors(2, dtype))] == [
+        "registers", "registers", "shared", "shared"]
+
+
 def _second_order_inputs(which):
     """(function, inputs) of one of the port's autograd Functions at a tiny
     size.  The function squares the Function's outputs, so that the
