@@ -12,14 +12,23 @@ Builds the host library and the CUDA kernels from this checkout, then
 1. kernel phase: runs each CUDA kernel on the card at the shapes of this
    run's plan, in float64 and float32, against its plain PyTorch version on
    the same inputs, and times both with CUDA events: the forward kernels
-   H1 matern_solve_e0, H2 leaf_assemble, H3 extend_add, H8 solve_e0 (on the packed smoothness-0.8 covariances of the first row
-   chunk), and the backward kernels H5 matern_solve_e0_bwd (against torch
-   autograd through H1's plain version; both at F = 11, 21, 41, then at
-   their edge shapes on both routes, their padding bit for bit and a batch
-   with one matrix that is not SPD, ``h15_edge_phase``), solve_e0_bwd (K2 one to one, H8's
-   backward: at H8's shape and on random SPD matrices), H6 extend_add_bwd
-   (writing, as on the main path, through a strided view into child
-   fronts' Schur blocks) and H7 leaf_assemble_bwd.  Then H4
+   H1 matern_solve_e0, H2 leaf_assemble, H3 extend_add, H8 solve_e0 (on
+   the packed smoothness-0.8 covariances of the first row chunk), and the
+   backward kernels H5 matern_solve_e0_bwd (against torch autograd through
+   H1's plain version; both at F = 11, 21, 41, then at their edge shapes on
+   both routes, their padding bit for bit and a batch with one matrix that
+   is not SPD, ``h15_edge_phase``); H1 and H5 at the general smoothness 0.8
+   (``matern_solve_e0[general]`` and ``matern_solve_e0_bwd[general]``, log
+   K_nu inside the kernel: at the same F, float32 held on the rows whose
+   float64 matrix has cond <= F32_COND_MAX, float64 on every row by its
+   cond, H5 with the log-determinant's cotangent and d/dnu held to its own
+   value, ``gen_run``; then at the edge shapes, at GEN_NUS on batches with
+   pairs on both sides of s = 3, their padding and a matrix not SPD,
+   ``gen_edge_phase``), solve_e0_bwd (K2 one to one,
+   H8's backward: at H8's shape and on random SPD matrices), H6
+   extend_add_bwd (writing, as on the main path, through a strided view
+   into child fronts' Schur blocks) and H7 leaf_assemble_bwd, with H3's and
+   H6's bounds summed over the plan's internal levels.  Then H4
    front_factor, measured here only: the edge shapes of its blocked schedule (``H4_EDGE_SHAPES``, a batch whose
    middle front is not SPD, NaN in the strict upper triangle of the
    inputs), and H4 at every level of this run's multifrontal plan, each
@@ -42,28 +51,37 @@ Builds the host library and the CUDA kernels from this checkout, then
    counters are reset just before this phase, and each of H1-H7 must have
    launched in it;
 4. general-covariance phase: the same at covparms (1.0, 0.05, 0.8) (a
-   smoothness without closed form: the packed covariance is built in torch
-   through log K_nu and solved by H8 solve_e0, backward solve_e0_bwd), value
-   and value+grad (median of 5).  At the default size f64 on the card is
-   held against the CPU plain path in f64, f32 against f64, ``esqe`` runs
-   once, and the Matern at 0.5 passed as a user callable (H8's path) is
-   held against the built-in 'matern' (H1's path).  All launch counters are
-   reset just before the smoothness-0.8 runs and read just after them;
-   solve_e0 and solve_e0_bwd and the factor's kernels must launch in them.
-   At covparms (1.0, 0.2, 0.8), the range users start at, where f32 drops
-   rows: value and gradient finite, and the first row chunk's U entries in
-   f32 held against f64 on the well-conditioned rows both keep;
+   smoothness without closed form: log K_nu is evaluated inside the general
+   H1 and H5), value and value+grad (median of 5).  At the default size f64
+   on the card is held against the CPU plain path in f64, f32 against f64,
+   and the Matern at 0.5 passed as a user callable (H8's path) is held
+   against the built-in 'matern' (H1's path).  All launch counters are
+   reset just before the smoothness-0.8 runs and read just after them: the
+   general H1 and H5 and the factor's kernels must launch in them, H8 and
+   solve_e0_bwd must not.  The torch log K_nu layer (the plain build the
+   general path ran before) is timed alone.  At covparms (1.0, 0.2, 0.8),
+   the range users start at, where f32 drops rows: value and gradient
+   finite, and the first row chunk's U entries in f32 held against f64 on
+   the well-conditioned rows both keep.  The fused path is held against the
+   packed path (the same Matern as a user callable: build_cov_packed, H8,
+   solve_e0_bwd) in value and gradient, with the rows each drops in f32 at
+   ranges 0.05 and 0.2, and in f32 at FVP_NUS, range 1/sqrt(n);
+   ``esqe`` runs value+grad, and H8 and solve_e0_bwd
+   must launch in it;
 5. estimation phase: ``vecchia_estimate`` (L-BFGS-B, f32 on the card,
-   max_iter 5, 3 at n=1e6) on this run's data plus a constant trend, and at
-   the default size a check at n=2000 on a dense GP draw in f64: the card's
-   estimate must reach the CPU's log-likelihood to 1e-6 relative.
+   max_iter 5, 3 at n=1e6) on this run's data plus a constant trend; at
+   the default size also the same estimate to convergence in f32 and in
+   f64 (theta_hat, iterations and dropped rows, reported), and a check at
+   n=2000 on a dense GP draw in f64: the card's estimate must reach the
+   CPU's log-likelihood to 1e-6 relative.
    --n 1000000 --m 40 runs phases 2-4 in f32 only.
 
 The kernel phase also computes each kernel's bound (the least time the card
 could take: the larger of the bytes its inputs and outputs need over the
 HBM rate and its operations over the SIMT peak) and, where one PyTorch call
 computes the same function (H1 and H8: ``torch.linalg.solve`` on the
-conditioning matrices), that call's time.
+conditioning matrices), that call's time.  No one call builds log K_nu and
+solves, so the general H1 and H5 have none.
 
 ``--only-h4`` is a tool for work on H4: it builds the kernels, runs the edge
 shapes and the level phase on the fixed table of the 14 level shapes of
@@ -107,8 +125,23 @@ import torch
 #    at n=1e5/m=20 and all of n=2.6e4/m=40, ranges 0.05 and 0.2) float32
 #    torch is within 1.0e-4 (H8) and 1.1e-4 (solve_e0_bwd) of that scale
 #    on those rows, which are 85-100 % of them.
+#  * the general Matern's H1 (log K_nu in the kernel): float32 on the rows
+#    whose float64 matrix has cond <= F32_COND_MAX, by the 4x rule alone.
+#    The cap fits H8, whose float32 input is the float64 matrix rounded;
+#    the general H1 builds its matrix in float32, as its plain version
+#    does, and on those rows the float32 build alone moves x by up to
+#    4.4e-3 of their scale (on the CPU at n=1e5, m=20, F=11: 2.57e1 of
+#    5.943e3 for torch's float32 build, 2.65e1 for the kernel's
+#    arithmetic, 1.47 for the float64 matrix rounded).  float64 on every
+#    row whose float64 matrix is positive definite, each row to
+#    max(F64_REL_TOL, F64_COND_ULPS eps cond) of its own largest entry:
+#    kernel and plain solve matrices built with ~10 ulps of log K_nu
+#    rounding apart, so their x lie ~cond ulps apart; at n=1e6, m=40,
+#    smoothness 0.8, range 0.05 a matrix of cond ~1e7 (x up to 1.6e7) gave
+#    3.5e-2, 2.2e-9 of its scale, which is 1 x eps x cond.
 F64_REL_TOL = 1e-9
 F32_FACTOR, F32_FLOOR = 4.0, 1e-6
+F64_COND_ULPS = 100
 F32_COND_MAX, F32_CAP = 1e5, 1e-3
 # Slice tolerances: f64 card vs f64 CPU plain path (same algorithm, other
 # summation orders), and f32 card vs f64 card (f32 rounding accumulated over
@@ -140,6 +173,20 @@ GRAD_F32_REL = 1e-4
 #    measurement gives 2.6e-7, 1.1e-5, 2.3e-4 and 7.2e-6.
 #  * the nu = 0.5 callable (H8's path) vs the built-in 'matern' (H1's), f64:
 #    1e-10 relative in value, 1e-10 of |g|max in (sig2, rho, nugget).
+#  * the general H5 against its plain version: the cotangent of x is the
+#    log-likelihood's log-determinant part, xbar = e0 / (2 x0) (the
+#    derivative of log U_ii = log x0 / 2), on the rows whose float64
+#    matrix has cond <= F32_COND_MAX (0 on the others, rows that float32
+#    drops), so d/dnu sums one-signed terms over the points and is held to
+#    its own value: GEN_DNU_F64_REL in float64, in float32 by the 4x rule
+#    with GEN_F32_DNU of it as the least tolerance; (sig2, rho) and the
+#    nuggets to F64_REL_TOL of their largest entry, and in float32 by the
+#    4x rule with GEN_F32_PAIR and GEN_F32_NUG as the least.  On the CPU
+#    (n=1001 Z-ordered points, the edge shapes and the smoothness list
+#    below) the terms' magnitudes sum to 1-39 times the value; the float64
+#    kernel's arithmetic of dg/dnu (its device code built for the host)
+#    moved d/dnu by at most 6.6e-9 of it (2e-10 at smoothness 0.8), and
+#    float32 torch's error was 1.4e-5 to 5.4e-2 of it (the most at nu = 3.7).
 GEN_F64_REL, GEN_DNU_F64_REL = 1e-9, 1e-6
 GEN_F32_PAIR, GEN_F32_DNU, GEN_F32_NUG = 1e-3, 2e-2, 1e-3
 CROSS_REL = 1e-10
@@ -191,7 +238,8 @@ class KernelCheck:
 
     def run(self, label, make_inputs, kernel, plain, out_of, cost,
             mutates=False, main=True, library=None, f32_rows=None,
-            dtypes=(torch.float64, torch.float32)):
+            dtypes=(torch.float64, torch.float32), rule=None,
+            plain_reps=3, timed=True):
         """make_inputs(dtype) -> tuple of CUDA tensors; kernel/plain(*inputs)
         -> result; out_of(result) -> the compared tensor or tuple of tensors
         (each held to the rule with its own scale).  ``cost(dtype)`` ->
@@ -205,31 +253,39 @@ class KernelCheck:
         the main shape only.  ``f32_rows``: a mask of the leading dimension;
         float32 is then held on those rows only, and to at most F32_CAP of
         their scale (see F32_COND_MAX).  ``dtypes``: the kernel's dtypes
-        (the reference is the float64 plain version in any case)."""
+        (the reference is the float64 plain version in any case).
+        ``rule(part, k, p, r, dtype)`` -> (err, held, tol, scale, note):
+        another rule than ``_rule`` for each compared part (None: ``_rule``
+        with ``f32_rows``).  ``plain_reps``: timed runs of the plain
+        version (1: one run, no warm-up: the check has run it).
+        ``timed``: False for shapes that are checked only (no times)."""
+        rule = rule or _rows_rule(f32_rows)
         ref = _parts(out_of(plain(*make_inputs(torch.float64))))
-        scales = [r.abs().max().item() for r in ref]
         for dt in dtypes:
             ks = _parts(out_of(kernel(*make_inputs(dt))))
-            ps = _parts(out_of(plain(*make_inputs(dt))))
+            ps = ref if dt == torch.float64 and not mutates else _parts(
+                out_of(plain(*make_inputs(dt))))
             torch.cuda.synchronize()
-            ok, worst = True, None
-            for k, p, r, scale in zip(ks, ps, ref, scales):
-                if f32_rows is not None and dt == torch.float32:
-                    k, p, r = k[f32_rows], p[f32_rows], r[f32_rows]
-                    scale = r.abs().max().item()
-                err, held, tol = _rule(k, p, r, scale, dt,
-                                       capped=f32_rows is not None)
+            ok, worst, ratios = True, None, []
+            for part, (k, p, r) in enumerate(zip(ks, ps, ref)):
+                err, held, tol, scale, note = rule(part, k, p, r, dt)
                 good = held <= tol and bool(np.isfinite(err))
-                ok = ok and good
                 ratio = held / tol if tol > 0 else float(held > 0)
-                if worst is None or not good or ratio > worst[0]:
-                    worst = (ratio, err, held, tol, scale)
+                ratios.append(f"{ratio:.1e}")
+                if worst is None or (ok and not good) or (
+                        good == ok and ratio > worst[0]):
+                    worst = (ratio, err, held, tol, scale, note, part)
+                ok = ok and good
             del ks, ps
-            _, err, held, tol, scale = worst
-            rows = ("" if f32_rows is None or dt == torch.float64 else
-                    f" on {int(f32_rows.sum())}/{len(f32_rows)} rows")
-            ms = self._time(kernel, make_inputs, dt, mutates)
-            plain_ms = self._time(plain, make_inputs, dt, mutates)
+            _, err, held, tol, scale, rows, part = worst
+            if len(ref) > 1:
+                rows += (f" (part {part + 1}/{len(ref)}; each part's held/"
+                         f"tol {', '.join(ratios)})")
+            ms = plain_ms = float("nan")
+            if timed:
+                ms = self._time(kernel, make_inputs, dt, mutates)
+                plain_ms = self._time(plain, make_inputs, dt, mutates,
+                                      plain_reps)
             bound_ms, bound_by = _bound(*cost(dt), dt)
             library_ms = None
             if library is not None and main:
@@ -254,6 +310,8 @@ class KernelCheck:
     def _time(fn, make_inputs, dt, mutates, reps=3):
         if not mutates:
             args = make_inputs(dt)
+            if reps == 1:                       # warm: the check ran it
+                return _once(fn, args)
             return cuda_time(lambda: fn(*args), reps)
         times = []
         for _ in range(reps + 1):
@@ -264,20 +322,37 @@ class KernelCheck:
         return statistics.median(times[1:])
 
 
-def _rule(k, p, r, scale, dt, capped=False):
+def _rule(k, p, r, scale, dt, capped=False, f64_tol=None, f32_floor=None):
     """(err, held, tol) of a kernel's result k against the plain version's p
     in the same dtype and the float64 plain reference r of largest entry
     ``scale`` (all as float64): err is |k - p|max; float64 holds it to
-    F64_REL_TOL of scale; float32 holds |k - r|max to F32_FACTOR times the
-    float32 plain version's own error plus F32_FLOOR of scale (``capped``:
-    to at most F32_CAP of scale)."""
+    F64_REL_TOL (or ``f64_tol``) of scale; float32 holds |k - r|max to
+    F32_FACTOR times the float32 plain version's own error plus F32_FLOOR
+    of scale (``capped``: to at most F32_CAP of scale; ``f32_floor``: to at
+    least that share of scale)."""
     err = (k - p).abs().max().item()
     if dt == torch.float64:
-        return err, err, F64_REL_TOL * scale
+        return err, err, (f64_tol or F64_REL_TOL) * scale
     tol = F32_FACTOR * (p - r).abs().max().item() + F32_FLOOR * scale
     if capped:
         tol = min(tol, F32_CAP * scale)
+    if f32_floor:
+        tol = max(tol, f32_floor * scale)
     return err, (k - r).abs().max().item(), tol
+
+
+def _rows_rule(f32_rows):
+    """KernelCheck's rule: ``_rule`` on every row, or in float32 on the
+    rows of ``f32_rows`` to at most F32_CAP of their scale."""
+    def rule(part, k, p, r, dt):
+        note = ""
+        if f32_rows is not None and dt == torch.float32:
+            k, p, r = k[f32_rows], p[f32_rows], r[f32_rows]
+            note = f" on {int(f32_rows.sum())}/{len(f32_rows)} rows"
+        scale = r.abs().max().item()
+        return _rule(k, p, r, scale, dt, capped=f32_rows is not None
+                     and dt == torch.float32) + (scale, note)
+    return rule
 
 
 def _bound(nbytes, flops, dt):
@@ -421,7 +496,7 @@ def morton_points(n, F, seed):
     return locs, np.where(valid, NN, 0).astype(np.int32), valid, resp
 
 
-def _h15_inputs(locs, NN, valid, resp, nug, dev):
+def _h15_inputs(locs, NN, valid, resp, nug, dev, covparms=COVPARMS):
     """make_inputs(dtype) of H1 for host arrays."""
     def mk(dt):
         return (torch.as_tensor(locs, dtype=dt, device=dev),
@@ -429,7 +504,7 @@ def _h15_inputs(locs, NN, valid, resp, nug, dev):
                 torch.as_tensor(valid, device=dev),
                 torch.as_tensor(resp, device=dev),
                 torch.as_tensor(nug, dtype=dt, device=dev),
-                torch.tensor(COVPARMS, dtype=torch.float64))
+                torch.tensor(covparms, dtype=torch.float64))
     return mk
 
 
@@ -507,6 +582,163 @@ def h15_run(h1, h5, locs, NN, valid, resp, label, main, seed, dev,
                 f"{row['ms']:.3f} ms, shared-memory route {t:.3f} ms")
 
 
+# Operations of the general Matern's kernels, for their bound.  One log
+# K_nu: ~40 of set-up (each transcendental, log, exp, sinh, counted as one)
+# and then on Temme's branch (x <= 3) 14 a term, at the terms the kernel's
+# exit rule takes at this run's x, or on CF2's branch (x > 3) ~20 a step,
+# at the steps this run's x takes (both counted by kernels/bessel.py's
+# ``_temme_kmu`` and ``_cf2_kmu``).  A pair of the forward adds ~10
+# (distance, log s, exp); the backward evaluates log K at nu (with the
+# climb's next ratio), nu + h and |nu - h| and adds ~30 a pair.
+OPS_LOGK_SETUP, OPS_TEMME_TERM, OPS_CF2_STEP = 40, 14, 20
+OPS_PAIR_FWD, OPS_PAIR_BWD = 10, 30
+
+
+def _gen_ops(args, covparms, dt, step=65536):
+    """(forward, backward) operations of the general Matern's pairs on
+    these inputs (float64 tensors on the card) in ``dt``, by the counts
+    above.  Temme's terms grow with x: they are counted on a grid of x <=
+    3 and read at the grid point at or above each pair's x."""
+    from gpvecchia_torch.kernels import bessel
+    from gpvecchia_torch.kernels import matern_solve as MS
+    locs, NN, valid = args[:3]
+    F = NN.shape[1]
+    w = MS.general_params(covparms[2], dt)
+    mus = [torch.tensor(w[e * MS.KV_WORDS], dtype=dt, device=locs.device)
+           for e in range(3)]
+    grid = torch.linspace(0.0, 3.0, 3001, dtype=dt, device=locs.device)[1:]
+    terms = [bessel._temme_kmu(mu, grid, terms=True)[2] for mu in mus]
+    il, jl = torch.tril_indices(F, F, -1, device=locs.device)
+    ops = [0.0] * 3
+    pairs = 0
+    for s0 in range(0, NN.shape[0], step):
+        nn, v = NN[s0:s0 + step].long(), valid[s0:s0 + step]
+        pts = locs[nn]
+        dist = (pts[:, il] - pts[:, jl]).norm(dim=-1)
+        x = (dist[v[:, il] & v[:, jl] & (dist > 0)] / covparms[1]).to(dt)
+        pairs += x.numel()
+        at = torch.bucketize(x[x <= 3.0], grid).clamp(max=len(grid) - 1)
+        big = x[x > 3.0]
+        for e, mu in enumerate(mus):
+            ops[e] += x.numel() * OPS_LOGK_SETUP + OPS_TEMME_TERM * float(
+                terms[e][at].sum()) + OPS_CF2_STEP * float(
+                    bessel._cf2_kmu(mu, big, steps=True)[2].sum())
+    return (ops[0] + pairs * OPS_PAIR_FWD,
+            sum(ops) + pairs * OPS_PAIR_BWD)
+
+
+def _conds(args, step=16384):
+    """2-norm condition numbers of the points' float64 conditioning
+    matrices (H1's plain build; inf where one is not positive definite)."""
+    from gpvecchia_torch.kernels import matern_solve as MS
+    locs, NN, valid, resp, nug, cp = args
+    cp = cp.to(locs.device)
+    out = []
+    for s0 in range(0, NN.shape[0], step):
+        sl = slice(s0, s0 + step)
+        C = MS._cov_chunk(locs, NN[sl].long(), valid[sl], resp[sl], nug,
+                          cp)[0]
+        ev = torch.linalg.eigvalsh(C)
+        out.append(torch.where(ev[:, 0] > 0, ev[:, -1] / ev[:, 0], torch.inf))
+    return torch.cat(out)
+
+
+def _cond_rule(cond):
+    """KernelCheck rule of the general H1 (see F64_COND_ULPS): float32 on
+    the rows with cond <= F32_COND_MAX by the 4x rule alone; float64 on
+    every row whose float64 matrix is positive definite, each to
+    max(F64_REL_TOL, F64_COND_ULPS eps cond) of its own largest entry
+    (``held`` is the largest ratio of a row's error to its tolerance, held
+    to 1)."""
+    well = cond <= F32_COND_MAX
+    pd = torch.isfinite(cond)
+    rel = torch.clamp(F64_COND_ULPS * torch.finfo(torch.float64).eps
+                      * cond[pd], min=F64_REL_TOL)
+    n_wide = int((rel > F64_REL_TOL).sum())
+    top = float(cond[pd].max()) if bool(pd.any()) else 0.0
+
+    def rule(part, k, p, r, dt):
+        if dt == torch.float32:
+            k, p, r = k[well], p[well], r[well]
+            scale = r.abs().max().item()
+            return _rule(k, p, r, scale, dt) + (
+                scale, f" on {int(well.sum())}/{len(well)} rows")
+        k, p, r = k[pd], p[pd], r[pd]
+        row_err = (k - p).abs().amax(1)
+        ratio = (row_err / (rel * r.abs().amax(1))).max().item()
+        return (row_err.max().item(), ratio, 1.0, r.abs().max().item(),
+                f" on {int(pd.sum())}/{len(pd)} rows, each by its cond "
+                f"({n_wide} above {F64_REL_TOL:g}, max cond {top:.2e})")
+    return rule
+
+
+def _bwd_rule(part, k, p, r, dt):
+    """KernelCheck rule of the general H5, parts (sig2, rho), d/dnu and the
+    nuggets (see GEN_DNU_F64_REL)."""
+    scale = r.abs().max().item()
+    return _rule(k, p, r, scale, dt, f64_tol=(None, GEN_DNU_F64_REL,
+                                              None)[part],
+                 f32_floor=(GEN_F32_PAIR, GEN_F32_DNU, GEN_F32_NUG)[part]) \
+        + (scale, "")
+
+
+def gen_run(h1g, h5g, locs, NN, valid, resp, covparms, label, main, dev,
+            dtypes=(torch.float64, torch.float32), plain_reps=3,
+            timed=True):
+    """The general Matern's H1 and H5 (``matern_solve_e0[general]``,
+    ``matern_solve_e0_bwd[general]``) against their plain versions (the
+    backward's: ``matern_solve_e0_bwd_plain`` reduced as the wrapper
+    reduces) on one batch of host arrays at ``covparms``, with their bound:
+    H1 by ``_cond_rule``, H5 by ``_bwd_rule`` with the log-determinant's
+    cotangent of x on the rows with cond <= F32_COND_MAX."""
+    from gpvecchia_torch.kernels import matern_solve as MS
+    n_all, d = locs.shape
+    n, F = NN.shape
+    mk = _h15_inputs(locs, NN, valid, resp, np.full(n_all, NUGGET), dev,
+                     covparms)
+    args64 = mk(torch.float64)
+    cond = _conds(args64)
+    ops = {dt: _gen_ops(args64, covparms, dt) for dt in dtypes}
+
+    def cost_fwd(dt):
+        sz = _size(dt)
+        return (n_all * (d + 1) * sz + n * F * (4 + 2) + n * F * sz,
+                n * _chol_solve_ops(F) + ops[dt][0])
+
+    h1g.run(label, mk, MS.matern_solve_e0, MS.matern_solve_e0_plain,
+            lambda x: x, cost_fwd, main=main, dtypes=dtypes,
+            rule=_cond_rule(cond), plain_reps=plain_reps, timed=timed)
+
+    # xbar = d(log x0 / 2)/dx on the well-conditioned rows
+    x0 = MS.matern_solve_e0_plain(*args64)[:, 0]
+    xbar = torch.zeros(n, F, dtype=torch.float64, device=dev)
+    xbar[:, 0] = torch.where(cond <= F32_COND_MAX, 0.5 / x0, 0.0)
+    del args64, x0
+    bwd_in = {}
+
+    def mk_bwd(dt):
+        if dt not in bwd_in:
+            a = mk(dt)
+            bwd_in[dt] = a + (MS.matern_solve_e0_plain(*a), xbar.to(dt))
+        return bwd_in[dt]
+
+    def plain_bwd(locs_t, NN_t, v, r, nug, cp, x, xb):
+        return MS.reduce_bwd(*MS.matern_solve_e0_bwd_plain(
+            locs_t, NN_t, v, r, nug, cp, x, xb), xb, NN_t, nug, cp)
+
+    def cost_bwd(dt):
+        # H1's inputs plus x and xbar in, dpar (n, 3) f64 and dslot out; the
+        # factor, the solve and ~6 operations a pair of contraction
+        nbytes, _ = cost_fwd(dt)
+        return (nbytes + 2 * n * F * _size(dt) + 24 * n,
+                n * (_chol_solve_ops(F) + 6 * F * (F + 1) / 2) + ops[dt][1])
+
+    h5g.run(label, mk_bwd, MS.matern_solve_e0_bwd, plain_bwd,
+            lambda r: (r[0][:2], r[0][2:], r[1]), cost_bwd, main=main,
+            dtypes=dtypes, rule=_bwd_rule, plain_reps=plain_reps,
+            timed=timed)
+
+
 def _edge_fs():
     """The F at which H1 and H5 are checked beyond the main path's: small
     F, a warp's width, the instantiated sizes around 8, each route's
@@ -540,6 +772,151 @@ def h15_edge_phase(dev, seed, n=1001):
         h15_run(h1, h5, locs, NN, valid, resp, f"n={n} F={F} ({MS.route(F, dtypes[-1])})",
                 False, seed + F, dev, dtypes=tuple(dtypes))
 
+    padding_check(dev, seed, n, COVPARMS, "H1/H5")
+    non_spd_check(dev, seed, n, COVPARMS, "H1/H5")
+
+
+# The general Matern's kernels beyond the main path's shape: smoothness
+# 0.3 (k = 0), 0.8, 2.0 (mu = 0: the small-mu guards), 1.4995, within
+# 1e-3 of 1.5 (in float32 nu + h rounds to k = 2, nu and |nu - h| to k = 1),
+# and 3.7 (k = 4: the climb's longest here; at the default seed 22 and 217
+# of the F = 21 and F = 72 batches' matrices have cond > F32_COND_MAX,
+# which float32 drops),
+# at a range at which the Z-ordered points' pairs lie on both sides of
+# s = 3 (Temme's series and CF2)
+GEN_NUS = (0.3, 0.8, 2.0, 1.4995, 3.7)
+GEN_EDGE_RANGE = 0.02
+GEN_SUB_N = 100_000
+
+
+def gen_edge_phase(dev, seed, n=1001):
+    """The general Matern's H1 and H5 at the edge shapes of both routes
+    (smoothness 0.8, range 0.05), at GEN_NUS on a batch of each route with
+    pairs on both sides of s = 3, their padding bit for bit and a batch
+    with one matrix not SPD, by KernelCheck's rule (not timed)."""
+    from gpvecchia_torch.kernels import matern_solve as MS
+    h1g = KernelCheck("matern_solve_e0[general] edge")
+    h5g = KernelCheck("matern_solve_e0_bwd[general] edge")
+    for F, dtypes in _edge_fs():
+        locs, NN, valid, resp = morton_points(n, F, seed + F)
+        gen_run(h1g, h5g, locs, NN, valid, resp, GEN_COVPARMS,
+                f"n={n} F={F} ({MS.route(F, dtypes[-1])})", False, dev,
+                dtypes=tuple(dtypes), timed=False)
+    for F in (21, 72):
+        locs, NN, valid, resp = morton_points(n, F, seed + F)
+        pts = locs[NN]
+        ok = valid[:, :, None] & valid[:, None, :]
+        x = np.linalg.norm(pts[:, :, None] - pts[:, None, :], axis=-1)[ok] \
+            / GEN_EDGE_RANGE
+        n_cf2, n_temme = int((x > 3).sum()), int(((x > 0) & (x <= 3)).sum())
+        if not (n_cf2 and n_temme):
+            raise AssertionError("the batch has no pairs on one side of s=3")
+        for nu in GEN_NUS:
+            gen_run(h1g, h5g, locs, NN, valid, resp,
+                    (1.0, GEN_EDGE_RANGE, nu),
+                    f"n={n} F={F} nu={nu} ({MS.route(F, torch.float32)})",
+                    False, dev, timed=False)
+        log(f"  general H1/H5 F={F}: {n_temme} pairs at s <= 3, {n_cf2} at "
+            f"s > 3, smoothness {GEN_NUS} held")
+    padding_check(dev, seed, n, GEN_COVPARMS, "general H1/H5")
+    non_spd_check(dev, seed, n, GEN_COVPARMS, "general H1/H5")
+
+
+def h8_edge_phase(dev, seed, n=1001):
+    """H8 solve_e0 and solve_e0_bwd at the edge shapes of both routes, on
+    random SPD packed matrices (G G^T / F + I in float64; the float32
+    inputs are them rounded), by KernelCheck's rule (not timed); their
+    padding bit for bit (a batch at F against the same matrices
+    identity-extended to the next instantiated size: x and gbar equal on
+    the F block, 0 elsewhere); a batch with one matrix not SPD: NaN/Inf in
+    its row only, the other rows held."""
+    from gpvecchia_torch.kernels import matern_solve as MS
+    h8 = KernelCheck("solve_e0 edge")
+    k2 = KernelCheck("solve_e0_bwd edge")
+    g = torch.Generator(device=dev).manual_seed(seed)
+
+    def packed(C):
+        iu, ju = torch.triu_indices(C.shape[-1], C.shape[-1], device=dev)
+        return C[:, iu, ju]
+
+    def inputs(C):
+        Cp = packed(C)
+        xbar = torch.randn(C.shape[:2], generator=g, dtype=torch.float64,
+                           device=dev)
+        return Cp, MS.solve_e0_plain(Cp), xbar
+
+    for F, dtypes in _edge_fs():
+        Cp, x, xbar = inputs(_spd_fronts(n, F, seed + F, dev))
+        label = f"n={n} F={F} ({MS.route(F, dtypes[-1])})"
+        h8.run(label, lambda dt: (Cp.to(dt),), MS.solve_e0,
+               MS.solve_e0_plain, lambda r: r, lambda dt: (0, 0.0),
+               main=False, dtypes=tuple(dtypes), timed=False)
+        k2.run(label, lambda dt: (Cp.to(dt), x.to(dt), xbar.to(dt)),
+               MS.solve_e0_bwd, MS.solve_e0_bwd_plain, lambda r: r,
+               lambda dt: (0, 0.0), main=False, dtypes=tuple(dtypes),
+               timed=False)
+
+    for F, FP in ((21, 24), (41, 48)):
+        C = _spd_fronts(n, F, seed + F, dev)
+        W = torch.eye(FP, dtype=torch.float64, device=dev).repeat(n, 1, 1)
+        W[:, :F, :F] = C
+        (Cp, x, xbar), Wp = inputs(C), packed(W)
+        block = packed(torch.nn.functional.pad(
+            torch.ones(1, F, F, device=dev), (0, FP - F, 0, FP - F)))[0] > 0
+        for dt in (torch.float64, torch.float32):
+            x_a, x_b = MS.solve_e0(Cp.to(dt)), MS.solve_e0(Wp.to(dt))
+            g_a = MS.solve_e0_bwd(Cp.to(dt), x_a, xbar.to(dt))
+            g_b = MS.solve_e0_bwd(Wp.to(dt), x_b, torch.nn.functional.pad(
+                xbar.to(dt), (0, FP - F)))
+            torch.cuda.synchronize()
+            if not (torch.equal(x_a, x_b[:, :F]) and not x_b[:, F:].any()
+                    and torch.equal(g_a, g_b[:, block])
+                    and not g_b[:, ~block].any()):
+                raise AssertionError(f"H8/solve_e0_bwd F={F} {dt}: padding "
+                                     f"to {FP} is not exact")
+
+    for F in (41, 72):
+        C = _spd_fronts(n, F, seed + 2 * F, dev)
+        p0 = n // 2
+        C[p0, 5, 5] = -1.0
+        Cp = packed(C)
+        xbar = torch.randn((n, F), generator=g, dtype=torch.float64,
+                           device=dev)
+        rows = torch.arange(n, device=dev) != p0
+        x64 = MS.solve_e0_plain(Cp)
+        for dt in (torch.float64, torch.float32):
+            if F > MS.max_neighbors(2, dt):
+                continue
+            x_p = MS.solve_e0_plain(Cp.to(dt))
+            x_k = MS.solve_e0(Cp.to(dt))
+            xin = torch.where(rows[:, None], x_p, 0.0)
+            g_k = MS.solve_e0_bwd(Cp.to(dt), xin, xbar.to(dt))
+            g_p = MS.solve_e0_bwd_plain(Cp.to(dt), xin, xbar.to(dt))
+            g64 = MS.solve_e0_bwd_plain(Cp, torch.where(rows[:, None], x64,
+                                                        0.0), xbar)
+            torch.cuda.synchronize()
+            for k, p, r in ((x_k, x_p, x64), (g_k, g_p, g64)):
+                if bool(torch.isfinite(k[p0]).all()) or not bool(
+                        torch.isfinite(k[rows]).all()):
+                    raise AssertionError(f"H8/solve_e0_bwd F={F} {dt}: a "
+                                         f"matrix not SPD did not give "
+                                         f"NaN/Inf in its row only")
+                k, p, r = k.double()[rows], p.double()[rows], r[rows]
+                _, held, tol = _rule(k, p, r, r.abs().max().item(), dt)
+                if not held <= tol:
+                    raise AssertionError(f"H8/solve_e0_bwd F={F} {dt}: rows "
+                                         f"beside the non-SPD one: "
+                                         f"{held:.3e} > {tol:.3e}")
+    log(f"  H8/solve_e0_bwd padding (F=21, 41 against 24, 48) bit for bit, "
+        f"and one matrix not SPD (F=41, 72): NaN/Inf in its row only, the "
+        f"other {n - 1} rows held, f64 and f32")
+
+
+def padding_check(dev, seed, n, covparms, name):
+    """The register route's padding: a kernel call at F against one at the
+    next instantiated size with the extra slots invalid, bit for bit (x,
+    dpar, dslot), with 0 in the padded slots."""
+    from gpvecchia_torch.kernels import matern_solve as MS
     for F, FP in ((21, 24), (41, 48)):
         locs, NN, valid, resp = morton_points(n, F, seed + F)
         pad = FP - F
@@ -548,8 +925,8 @@ def h15_edge_phase(dev, seed, n=1001):
         xbar = np.random.default_rng(seed).normal(size=(n, F))
         for dt in (torch.float64, torch.float32):
             nug = np.full(len(locs), NUGGET)
-            a = _h15_inputs(locs, NN, valid, resp, nug, dev)(dt)
-            b = _h15_inputs(locs, *wide, nug, dev)(dt)
+            a = _h15_inputs(locs, NN, valid, resp, nug, dev, covparms)(dt)
+            b = _h15_inputs(locs, *wide, nug, dev, covparms)(dt)
             x_a, x_b = MS._launch(*a), MS._launch(*b)
             xb = torch.as_tensor(xbar, dtype=dt, device=dev)
             g_a = MS._launch_bwd(*a, x_a, xb)
@@ -560,15 +937,21 @@ def h15_edge_phase(dev, seed, n=1001):
                     and torch.equal(g_a[0], g_b[0])
                     and torch.equal(g_a[1], g_b[1][:, :F])
                     and not g_b[1][:, F:].any()):
-                raise AssertionError(f"H1/H5 F={F} {dt}: padding to {FP} is "
-                                     f"not exact")
-    log(f"  H1/H5 padding: F=21 and F=41 equal their explicitly padded "
+                raise AssertionError(f"{name} F={F} {dt}: padding to {FP} "
+                                     f"is not exact")
+    log(f"  {name} padding: F=21 and F=41 equal their explicitly padded "
         f"F=24 and F=48 bit for bit (x, dpar, dslot), 0 in the padded "
-        f"slots, f64 and f32")
+        f"slots, f64 and f32, covparms {covparms}")
 
-    # one point whose matrix is not SPD: a response slot's nugget of
-    # -2 sig2 that enters no other row, so that pivot is negative exactly
-    sig2 = COVPARMS[0]
+
+def non_spd_check(dev, seed, n, covparms, name):
+    """A batch in which one point's conditioning matrix is not positive
+    definite (a response slot's nugget of -2 sig2 that enters no other row,
+    so that pivot is negative exactly): NaN or Inf in that point's row
+    only, every other row held to the plain version (F = 41 on the register
+    route, 72 on the shared-memory route)."""
+    from gpvecchia_torch.kernels import matern_solve as MS
+    sig2 = covparms[0]
     for F in (41, 72):
         locs, NN, valid, resp = morton_points(n, F, seed + 2 * F)
         p0, s0 = n // 2, 5
@@ -583,30 +966,40 @@ def h15_edge_phase(dev, seed, n=1001):
         for dt in (torch.float64, torch.float32):
             if F > MS.max_neighbors(2, dt):
                 continue
-            args = _h15_inputs(locs, NN, valid, resp, nug, dev)(dt)
+            args = _h15_inputs(locs, NN, valid, resp, nug, dev, covparms)(dt)
             x_k = MS._launch(*args)
             x_p = MS.matern_solve_e0_plain(*args)
             xb = torch.as_tensor(xbar, dtype=dt, device=dev)
             dpar_k, dslot_k = MS._launch_bwd(*args, x_p, xb)
             dpar_p, dslot_p = MS.matern_solve_e0_bwd_plain(*args, x_p, xb)
             torch.cuda.synchronize()
-            outs = [(x_k, x_p), (dpar_k, dpar_p), (dslot_k, dslot_p)]
+            # d/dnu (the general Matern's third column of dpar) on its own
+            # scale; the general Matern's float32 floors (see
+            # GEN_DNU_F64_REL)
+            outs = [(x_k, x_p), (dpar_k[:, :2], dpar_p[:, :2]),
+                    (dslot_k, dslot_p), (dpar_k[:, 2:], dpar_p[:, 2:])]
+            floors = ((None, GEN_F32_PAIR, GEN_F32_NUG, GEN_F32_DNU)
+                      if dpar_k.shape[1] == 3 else (None,) * 4)
             if ref is None:
                 ref = [p.double() for _, p in outs]
-            for (k, p), r in zip(outs, ref):
+            for i, ((k, p), r) in enumerate(zip(outs, ref)):
+                if not k.numel():
+                    continue
                 if bool(torch.isfinite(k[p0]).all()) or not bool(
                         torch.isfinite(k[rows]).all()):
-                    raise AssertionError(f"H1/H5 F={F} {dt}: a matrix not "
+                    raise AssertionError(f"{name} F={F} {dt}: a matrix not "
                                          f"SPD did not give NaN/Inf in its "
                                          f"row only")
                 k, p, r = k.double()[rows], p.double()[rows], r[rows]
                 scale = r.abs().max().item()
-                err, held, tol = _rule(k, p, r, scale, dt)
+                err, held, tol = _rule(k, p, r, scale, dt, f64_tol=(
+                    GEN_DNU_F64_REL if i == 3 else None),
+                    f32_floor=floors[i])
                 if not held <= tol:
-                    raise AssertionError(f"H1/H5 F={F} {dt}: rows beside "
+                    raise AssertionError(f"{name} F={F} {dt}: rows beside "
                                          f"the non-SPD one: {held:.3e} > "
                                          f"{tol:.3e}")
-    log(f"  H1/H5 with one matrix not SPD (F=41 registers, F=72 shared): "
+    log(f"  {name} with one matrix not SPD (F=41 registers, F=72 shared): "
         f"NaN/Inf in its row only, the other {n - 1} rows held, f64 and f32")
 
 
@@ -624,6 +1017,7 @@ def kernel_phase(spec, mf, seed, dev):
     h1 = checks["matern_solve_e0"] = KernelCheck("matern_solve_e0")
     h5 = checks["matern_solve_e0_bwd"] = KernelCheck("matern_solve_e0_bwd")
     m = spec.m
+    inputs = {}
     for F in (11, 21, 41):
         if F <= m + 1:
             NN = spec.NNarray[:, :F]
@@ -631,10 +1025,29 @@ def kernel_phase(spec, mf, seed, dev):
             NN = find_ordered_nn(spec.locsord, F - 1)
         cond = which_cond_on_latent(NN) & (NN >= 0)
         valid = NN >= 0
-        h15_run(h1, h5, spec.locsord, np.where(valid, NN, 0).astype(np.int32),
-                valid, valid & ~cond, f"n={NN.shape[0]} F={F}",
+        inputs[F] = (np.where(valid, NN, 0).astype(np.int32), valid,
+                     valid & ~cond)
+        h15_run(h1, h5, spec.locsord, *inputs[F], f"n={NN.shape[0]} F={F}",
                 F == m + 1, seed + F, dev)
     h15_edge_phase(dev, seed)
+
+    # ---- the general Matern (smoothness 0.8) on H1 and H5's routes at the
+    # same F; at n > 1e5 the F off the main path on the first GEN_SUB_N
+    # points, and the plain versions timed once ----
+    h1g = checks["matern_solve_e0[general]"] = KernelCheck(
+        "matern_solve_e0[general]")
+    h5g = checks["matern_solve_e0_bwd[general]"] = KernelCheck(
+        "matern_solve_e0_bwd[general]")
+    big = spec.locsord.shape[0] > 100_000
+    for F, arrays in inputs.items():
+        main = F == m + 1
+        rows = slice(None) if main or not big else slice(0, GEN_SUB_N)
+        arrays = tuple(a[rows] for a in arrays)
+        gen_run(h1g, h5g, spec.locsord, *arrays, GEN_COVPARMS,
+                f"n={arrays[0].shape[0]} F={F} (nu 0.8)", main, dev,
+                plain_reps=1 if big else 3)
+    del inputs
+    gen_edge_phase(dev, seed)
 
     # ---- H8 solve_e0 and solve_e0_bwd at the general path's shape: the
     # packed smoothness-0.8 covariances of the first row chunk ----
@@ -670,6 +1083,8 @@ def kernel_phase(spec, mf, seed, dev):
            MS.solve_e0_bwd, MS.solve_e0_bwd_plain, lambda r: r, cost_k2,
            f32_rows=well)
     del k2_main, chunk
+
+    h8_edge_phase(dev, seed)
 
     # ---- solve_e0_bwd (K2 one to one) at F = 41 on random SPD matrices --
     n2, F = 65536, 41
@@ -821,7 +1236,34 @@ def kernel_phase(spec, mf, seed, dev):
         h6.run(label + f" F1c={F1c}", mk_h6, h6_kernel, h6_plain, h6_out,
                cost_h6, mutates=True)
         del dfront
-    return checks
+    return checks, eadd_bounds(mf)
+
+
+def eadd_bounds(mf):
+    """H3's and H6's bounds summed over the plan's internal levels (bytes,
+    as ``cost_h3`` and ``cost_h6`` count them at a level: the children's
+    Schur blocks, ext, the border vectors and the parent fronts, full
+    squares), float32 and float64."""
+    out = {}
+    for dt in (torch.float32, torch.float64):
+        sz = _size(dt)
+        h3 = h6 = 0.0
+        for d in range(mf.depth):
+            lv = mf.levels[d]
+            N, F1 = lv.piv_ids.shape[0], lv.npiv + lv.nbord + 1
+            Bc1 = mf.levels[d + 1].nbord + 1
+            b = (lv.ext >= 0).sum(-1)
+            ops = float((b * (b + 1) / 2).sum())
+            kids, ext = 2 * N * Bc1 * Bc1 * sz, 2 * N * F1 * 4
+            h3 += _bound(kids + ext + 2 * N * F1 * sz + N * F1 * F1 * sz,
+                         ops, dt)[0]
+            h6 += _bound(N * F1 * F1 * sz + ext + kids + 2 * N * F1 * sz,
+                         0.0, dt)[0]
+        name = str(dt).split(".")[-1]
+        out[name] = dict(extend_add=h3, extend_add_bwd=h6, levels=mf.depth)
+        log(f"  extend_add / extend_add_bwd bound summed over the "
+            f"{mf.depth} internal levels, {name}: {h3:.3f} / {h6:.3f} ms")
+    return out
 
 
 # ``--only-h15``: H1 and H5 at these F on H15_N Z-ordered points (F = 72
@@ -1110,9 +1552,13 @@ def _exp05(dist, covparms):
 
 def cov_layer_ms(spec, dt):
     """(build, build + VJP) milliseconds of the packed smoothness-0.8
-    covariance over all row chunks: the log K_nu layer of one evaluation
-    and of one value+grad (the backward's rebuild and its three more
-    log K_nu evaluations), without the solves and the factor."""
+    covariance over all row chunks in torch (``build_cov_packed`` through
+    ``kernels/bessel.py``): the plain log K_nu layer that the general
+    path ran before its covariance moved into H1 and H5, for one
+    evaluation and one value+grad (the backward's rebuild and its three
+    more log K_nu evaluations), without the solves and the factor.  No
+    path of the port runs it on the card now but the general Matern above
+    ``max_neighbors``; it is timed as the yardstick of the fused kernels."""
     from gpvecchia_torch.kernels import covariance as CV
     from gpvecchia_torch.kernels import u_entries as UE
     from gpvecchia_torch.plan import get_plan
@@ -1147,8 +1593,8 @@ def users_range_check(spec, z, big):
     """The smoothness-0.8 Matern at the range of the JAX package's default
     start (USER_COVPARMS), where float32 drops rows.  Value and gradient on
     the card must be finite in each dtype run.  Over the first row chunk the
-    U entries (H8's path) in float32 and float64 must agree on the rows that
-    both keep and whose float64 matrix has a condition number <=
+    U entries (the general H1) in float32 and float64 must agree on the rows
+    that both keep and whose float64 matrix has a condition number <=
     F32_COND_MAX."""
     import gpvecchia_torch as gt
     from gpvecchia_torch.kernels import u_entries as UE
@@ -1205,12 +1651,14 @@ def users_range_check(spec, z, big):
     return res
 
 
-def general_phase(spec, z, big, counters):
-    """Value and value+grad at smoothness 0.8 on the card (H8 and
-    solve_e0_bwd with the factor's kernels); returns (results, launches,
-    peak).  Every kernel of ``counters`` must launch in this phase."""
+def general_phase(spec, z, big, counters, packed):
+    """Value and value+grad at smoothness 0.8 on the card (the general H1
+    and H5 with the factor's kernels); returns (results, launches, peak,
+    esqe's launches).  Every kernel of ``counters`` must launch in the
+    smoothness-0.8 runs and none of ``packed`` (H8, solve_e0_bwd), which
+    must launch in esqe's run."""
     import gpvecchia_torch as gt
-    for k in counters:
+    for k in counters + packed:
         k.launches = 0
     torch.cuda.reset_peak_memory_stats()
     res = {}
@@ -1262,28 +1710,26 @@ def general_phase(spec, z, big, counters):
             f"{res[name]['value_grad_ms']:.2f} ms (5 each)")
     # the counts and the peak of the smoothness-0.8 runs alone: what follows
     # launches the same kernels
-    launches = {k.__name__: k.launches for k in counters}
+    launches = {k.__name__: k.launches for k in counters + packed}
     peak = torch.cuda.max_memory_allocated()
     log(f"  launches during the smoothness-0.8 runs: {launches}")
     log(f"  peak device memory: {peak / 2**30:.3f} GiB")
-    if min(launches.values()) <= 0:
-        raise AssertionError(f"a kernel of the general path never launched: "
+    if min(k.launches for k in counters) <= 0 or any(
+            k.launches for k in packed):
+        raise AssertionError(f"the general path did not launch the general "
+                             f"H1/H5 and the factor's kernels alone: "
                              f"{launches}")
 
     build_ms, build_vjp_ms = cov_layer_ms(spec, torch.float32)
     res["cov_build_ms"], res["cov_build_vjp_ms"] = build_ms, build_vjp_ms
-    log(f"  float32 log K_nu covariance layer alone: build {build_ms:.2f} ms "
-        f"({100 * build_ms / res['float32']['eval_ms']:.1f} % of an eval), "
-        f"build+VJP {build_vjp_ms:.2f} ms")
+    log(f"  float32 log K_nu layer in torch (plain: build_cov_packed, no "
+        f"longer on the general path): build {build_ms:.2f} ms, build+VJP "
+        f"{build_vjp_ms:.2f} ms")
     res["users_range"] = users_range_check(spec, z, big)
+    res["fused_vs_packed"] = fused_vs_packed(spec, z, big)
+    res["esqe"], esqe_launches = esqe_run(spec, z, packed)
 
     if not big:
-        ll = gt.vecchia_likelihood(z, spec, (0.8, 0.3, 0.4, 0.2), NUGGET,
-                                   "esqe", device="cuda", dtype=torch.float32)
-        if not np.isfinite(ll):
-            raise AssertionError("esqe: log-likelihood not finite")
-        res["esqe_loglik_f32"] = ll
-        log(f"  esqe (0.8, 0.3, 0.4, 0.2) f32: loglik {ll!r}")
         zt = torch.as_tensor(z, dtype=torch.float64, device="cuda")
         builtin, callable_ = (value_grad(gt.loglik_fn(spec, cm, device="cuda"),
                                          zt, NUGGET)
@@ -1299,7 +1745,7 @@ def general_phase(spec, z, big, counters):
         if not (e_val <= CROSS_REL and e_grad <= CROSS_REL):
             raise AssertionError("the H8 path disagrees with the H1 path")
     if big:
-        return res, launches, peak
+        return res, launches, peak, esqe_launches
 
     fn = gt.loglik_fn(spec, device="cpu", dtype=torch.float64)
     t0 = time.perf_counter()
@@ -1331,7 +1777,126 @@ def general_phase(spec, z, big, counters):
     if any(err[k] > tol[k] for k in tol):
         raise AssertionError("general phase: the card disagrees with the "
                              "reference path")
-    return res, launches, peak
+    return res, launches, peak, esqe_launches
+
+
+ESQE_COVPARMS = (0.8, 0.3, 0.4, 0.2)
+
+
+def esqe_run(spec, z, packed):
+    """esqe's value and gradient in float32 on the card: the packed path.
+    The launch counts of ``packed`` (H8, solve_e0_bwd) are set to 0 just
+    before and read just after; each must be positive."""
+    import gpvecchia_torch as gt
+    for k in packed:
+        k.launches = 0
+    fn = gt.loglik_fn(spec, "esqe", device="cuda", dtype=torch.float32)
+    r = value_grad(fn, torch.as_tensor(z, dtype=torch.float32,
+                                       device="cuda"), NUGGET, ESQE_COVPARMS)
+    launches = {k.__name__: k.launches for k in packed}
+    log(f"  esqe {ESQE_COVPARMS} f32: loglik {r[0]!r}, dcovparms {r[1]}, "
+        f"dnugget {float(r[2])!r}; launches {launches}")
+    if not (np.isfinite(r[0]) and np.all(np.isfinite(r[1]))):
+        raise AssertionError("esqe: value or gradient not finite")
+    if min(launches.values()) <= 0:
+        raise AssertionError(f"esqe did not launch H8 and solve_e0_bwd: "
+                             f"{launches}")
+    return _jsonable(r), launches
+
+
+def _matern_callable(dist, covparms):
+    """The built-in Matern passed as a user callable: the packed path
+    (build_cov_packed, H8, solve_e0_bwd)."""
+    from gpvecchia_torch.kernels import covariance as CV
+    return CV.matern(dist, covparms)
+
+
+# fused vs packed in float32 beyond smoothness 0.8: 1.4995 (float32's
+# climb to nu + h differs from float64's there, see GEN_NUS) and 2.0, at a
+# range of FVP_SPACING / sqrt(n), about the points' spacing, where float32
+# drops no row (at range 0.05 the plain float32 path drops 318 and 13 316 of
+# the 1e5 rows of m=20 at these smoothnesses, on the CPU)
+FVP_NUS = (1.4995, 2.0)
+FVP_SPACING = 1.0
+
+
+def _route_vg(spec, cm, zt, covparms):
+    """Value, gradient and dropped rows of covariance model ``cm`` on the
+    card, in zt's dtype."""
+    import gpvecchia_torch as gt
+    fn = gt.loglik_fn(spec, cm, device="cuda", dtype=zt.dtype,
+                      with_aux=True)
+    c = torch.tensor(covparms, dtype=torch.float64, requires_grad=True)
+    g = torch.tensor(NUGGET, dtype=torch.float64, requires_grad=True)
+    ll, aux = fn(zt, c, g)
+    dc, dg = torch.autograd.grad(ll, (c, g))
+    return dict(loglik=float(ll.detach()), dcovparms=dc.tolist(),
+                dnugget=float(dg), dropped_rows=int(aux["n_dropped_rows"]))
+
+
+def fused_vs_packed(spec, z, big):
+    """The Matern by its two independent routes on the card: the built-in
+    'matern' (log K_nu inside the general H1 and H5) and the same Matern
+    as a user callable (the torch build, H8, solve_e0_bwd).  Value and
+    gradient held at smoothness 0.8, range 0.05: in float64 at the default
+    size (value GEN_F64_REL, (sig2, rho, nugget) GRAD_F64_REL of |g|max,
+    d/dnu GEN_DNU_F64_REL relative), in float32 at n > 1e5 (value
+    SLICE_F32_REL, (sig2, rho) GEN_F32_PAIR of their max, d/dnu GEN_F32_DNU
+    relative, the nugget GEN_F32_NUG); in float32 by the same tolerances at
+    FVP_NUS at both sizes.  The rows each route drops in float32 at ranges
+    0.05 and 0.2 are reported."""
+    res = {}
+    routes = (("fused", "matern"), ("packed", _matern_callable))
+    for dt in ((torch.float32,) if big else (torch.float64, torch.float32)):
+        name = str(dt).split(".")[-1]
+        zt = torch.as_tensor(z, dtype=dt, device="cuda")
+        ranges = (GEN_COVPARMS[1],) + (
+            (USER_COVPARMS[1],) if dt == torch.float32 else ())
+        for rho in ranges:
+            out = {route: _route_vg(spec, cm, zt, (1.0, rho, 0.8))
+                   for route, cm in routes}
+            res[f"{name} range {rho}"] = out
+            log(f"  fused vs packed, {name}, range {rho}: loglik "
+                f"{out['fused']['loglik']!r} / {out['packed']['loglik']!r}, "
+                f"rows dropped {out['fused']['dropped_rows']} / "
+                f"{out['packed']['dropped_rows']}")
+    held = ("float32" if big else "float64", GEN_COVPARMS[1], 0.8)
+    zt = torch.as_tensor(z, dtype=torch.float32, device="cuda")
+    rho = FVP_SPACING / len(z) ** 0.5
+    for nu in FVP_NUS:
+        res[f"float32 range {rho:.4g} nu {nu}"] = {
+            route: _route_vg(spec, cm, zt, (1.0, rho, nu))
+            for route, cm in routes}
+    failed = False
+    for key in [f"{held[0]} range {held[1]}"] + [
+            f"float32 range {rho:.4g} nu {nu}" for nu in FVP_NUS]:
+        a, b = res[key]["fused"], res[key]["packed"]
+        ga, gb = (np.array(r["dcovparms"] + [r["dnugget"]]) for r in (a, b))
+        err = dict(value=abs(a["loglik"] - b["loglik"]) / abs(b["loglik"]),
+                   dnu=abs(ga[2] - gb[2]) / abs(gb[2]))
+        if key.startswith("float64"):
+            keep = [0, 1, 3]
+            err["grad"] = np.abs(ga[keep] - gb[keep]).max() \
+                / np.abs(gb[keep]).max()
+            tol = dict(value=GEN_F64_REL, dnu=GEN_DNU_F64_REL,
+                       grad=GRAD_F64_REL)
+        else:
+            err["pair"] = np.abs(ga[:2] - gb[:2]).max() \
+                / np.abs(gb[:2]).max()
+            err["nugget"] = abs(ga[3] - gb[3]) / abs(gb[3])
+            tol = dict(value=SLICE_F32_REL, dnu=GEN_F32_DNU,
+                       pair=GEN_F32_PAIR, nugget=GEN_F32_NUG)
+        res[key]["errors"] = {k: float(v) for k, v in err.items()}
+        log(f"  fused vs packed ({key}; d/dnu {float(ga[2])!r} / "
+            f"{float(gb[2])!r}, rows "
+            f"dropped {a['dropped_rows']} / {b['dropped_rows']}): "
+            + ", ".join(f"{k} {v:.3e} (tol {tol[k]:g})"
+                        for k, v in err.items()))
+        failed = failed or not all(err[k] <= tol[k] for k in tol)
+    if failed:
+        raise AssertionError("the fused general path disagrees with the "
+                             "packed path")
+    return res
 
 
 def _obj_grad_ms(spec, z, lg, dt):
@@ -1383,6 +1948,7 @@ def estimate_phase(locs, z, m, big, seed):
         f"{step_ms:.2f} ms")
     if big:
         return res
+    res["f32_vs_f64"] = dtype_estimates(locs, z, m)
     rng = np.random.default_rng(seed + 1)
     n2 = 2000
     locs2 = rng.uniform(size=(n2, 2))
@@ -1405,6 +1971,42 @@ def estimate_phase(locs, z, m, big, seed):
         raise AssertionError("estimate: the card's estimate disagrees with "
                              "the CPU's")
     return res
+
+
+def dtype_estimates(locs, z, m):
+    """``vecchia_estimate`` (L-BFGS-B, its default start and iteration
+    limit) on this run's data plus a constant trend in float32 and in
+    float64 on the card: theta_hat, iterations and the rows each drops (not
+    SPD) at the start and at its estimate.  A measurement: nothing is held
+    but finiteness."""
+    import gpvecchia_torch as gt
+    from gpvecchia_torch.fit import mle
+    out = {}
+    for dt in (torch.float32, torch.float64):
+        name = str(dt).split(".")[-1]
+        t0 = time.perf_counter()
+        est = gt.vecchia_estimate(z + 1.0, locs, m=m, output_level=0,
+                                  device="cuda", dtype=dt)
+        total_s = time.perf_counter() - t0
+        fn = gt.loglik_fn(est["spec"], device="cuda", dtype=dt, with_aux=True)
+        zt = torch.as_tensor(est["z"], dtype=dt, device="cuda")
+        dropped = {}
+        for at, th in (("start", mle._theta_ini(est["z"], locs)),
+                       ("estimate", est["theta_hat"])):
+            _, aux = fn(zt, th[:3], float(th[3]))
+            dropped[at] = int(aux["n_dropped_rows"])
+        if not np.isfinite(est["theta_hat"]).all():
+            raise AssertionError(f"estimate {name}: not finite")
+        out[name] = dict(theta_hat=est["theta_hat"].tolist(),
+                         n_iter=int(est["n_iter"]),
+                         converged=est["converged"], loglik=est["loglik"],
+                         dropped_rows=dropped, total_s=total_s)
+        log(f"  lbfgs {name} to convergence: n_iter {est['n_iter']}, "
+            f"converged {est['converged']}, theta_hat {est['theta_hat']}, "
+            f"loglik {est['loglik']!r}, rows dropped at the start "
+            f"{dropped['start']} and at the estimate {dropped['estimate']}, "
+            f"{total_s:.1f} s")
+    return out
 
 
 def _jsonable(r, summary=False):
@@ -1507,7 +2109,7 @@ def main():
         f"{mf.levels[0].npiv}")
 
     log("kernel phase (kernel vs plain version on the card):")
-    checks = kernel_phase(spec, mf, args.seed, dev)
+    checks, eadd = kernel_phase(spec, mf, args.seed, dev)
     h4_edge_phase(dev, args.seed)
     h4_levels, checks["front_factor"] = h4_level_phase(
         _level_shapes(mf), dev, args.seed)
@@ -1594,9 +2196,10 @@ def main():
                                                 counters + bwd_counters)
 
     log("general-covariance phase (smoothness 0.8):")
-    gen_counters = (MS.solve_e0, MS.solve_e0_bwd) + counters[1:] \
+    gen_counters = (MS.GENERAL_FWD, MS.GENERAL_BWD) + counters[1:] \
         + bwd_counters[1:]
-    gen, gen_launches, gen_peak = general_phase(spec, z, big, gen_counters)
+    gen, gen_launches, gen_peak, esqe_launches = general_phase(
+        spec, z, big, gen_counters, (MS.solve_e0, MS.solve_e0_bwd))
 
     log("estimation phase:")
     est = estimate_phase(locs, z, args.m, big, args.seed)
@@ -1611,10 +2214,14 @@ def main():
     fr_cu = "gpvecchia_torch/csrc/frontal.cu"
     crout = "gpvecchia_tpu/kernels/pallas_crout.py"
     src = {"matern_solve_e0": regs_cu, "matern_solve_e0_bwd": regs_cu,
+           "matern_solve_e0[general]": regs_cu,
+           "matern_solve_e0_bwd[general]": regs_cu,
            "solve_e0": ms_cu, "solve_e0_bwd": ms_cu}
     replaces = {
         "matern_solve_e0": f"{crout}:268",
         "matern_solve_e0_bwd": f"{crout}:155",
+        "matern_solve_e0[general]": f"{crout}:135",
+        "matern_solve_e0_bwd[general]": f"{crout}:155",
         "solve_e0": f"{crout}:135",
         "solve_e0_bwd": f"{crout}:155",
         "leaf_assemble": "gpvecchia_tpu/linalg/pallas_level.py:594",
@@ -1624,13 +2231,15 @@ def main():
         "leaf_assemble_bwd": "gpvecchia_tpu/linalg/pallas_level.py:594"}
     # launches: each kernel's count on the path it serves, with the counts
     # set to 0 just before that path ran: H1-H4 from the slice phase,
-    # H5-H7 from the gradient phase, H8 and solve_e0_bwd from the
-    # general-covariance phase's smoothness-0.8 runs
+    # H5-H7 from the gradient phase, the general H1 and H5 from the
+    # general-covariance phase's smoothness-0.8 runs, H8 and solve_e0_bwd
+    # from its esqe run
     path_launches = dict(launches,
                          **{k.__name__: grad_launches[k.__name__]
                             for k in bwd_counters},
                          **{k.__name__: gen_launches[k.__name__]
-                            for k in (MS.solve_e0, MS.solve_e0_bwd)})
+                            for k in (MS.GENERAL_FWD, MS.GENERAL_BWD)},
+                         **esqe_launches)
     kernels = []
     for name, chk in checks.items():
         # f32 (the production precision) at the main path's shape
@@ -1658,6 +2267,7 @@ def main():
                       "general_peak_bytes": gen_peak,
                       "grad_launches": grad_launches,
                       "general_launches": gen_launches,
+                      "esqe_launches": esqe_launches, "eadd_bounds": eadd,
                       "h4_levels": h4_levels, "smi": smi},
                      default=float))
     print(json.dumps({"kernels": kernels}))

@@ -33,16 +33,20 @@ FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 _P, _I, _LL, _D = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, \
     ctypes.c_double
 _SIGNATURES = {
+    # ..., sig2, rho, nu_idx, gen (the general Matern's constants or
+    # NULL), outputs ...
     "gpv_matern_solve_e0": [_P, _I, _P, _P, _P, _P, _I, _I, _D, _D, _I, _P,
-                            _I, _P],
+                            _P, _I, _P],
     "gpv_matern_solve_e0_bwd": [_P, _I, _P, _P, _P, _P, _I, _I, _D, _D, _I,
-                                _P, _P, _P, _P, _I, _P],
+                                _P, _P, _P, _P, _P, _I, _P],
     "gpv_matern_solve_e0_regs": [_P, _I, _P, _P, _P, _P, _I, _I, _D, _D, _I,
-                                 _P, _P],
+                                 _P, _P, _P],
     "gpv_matern_solve_e0_bwd_regs": [_P, _I, _P, _P, _P, _P, _I, _I, _D, _D,
-                                     _I, _P, _P, _P, _P, _P],
+                                     _I, _P, _P, _P, _P, _P, _P],
     "gpv_solve_e0": [_P, _I, _I, _P, _I, _P],
     "gpv_solve_e0_bwd": [_P, _I, _I, _P, _P, _P, _I, _P],
+    "gpv_solve_e0_regs": [_P, _I, _I, _P, _P],
+    "gpv_solve_e0_bwd_regs": [_P, _I, _I, _P, _P, _P, _P],
     "gpv_leaf_assemble": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _P, _P],
     "gpv_extend_add": [_P, _LL, _LL, _LL, _P, _P, _P, _I, _I, _P, _P],
     "gpv_front_factor": [_P, _I, _I, _I, _P],

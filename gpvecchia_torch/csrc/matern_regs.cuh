@@ -12,7 +12,8 @@
 // 32 (r + 1)) in registers (F = 41: FP = 48, 32 + 48 values a lane).
 // Shared memory a warp: two pivot-column buffers (32 R values each), the
 // packed lower triangle S (FP (FP + 1) / 2 values, row i at i (i + 1) / 2;
-// H5 also keeps dC/dsig2 and dC/drho there in two more such triangles), the
+// H5 also keeps dC/dsig2 and dC/drho there in two more such triangles, and
+// at a general smoothness dC/dnu in a third), the
 // coordinates (FP x d), the validity and nugget vectors (and for H5 the
 // solution w and the forward's x).
 //
@@ -66,10 +67,13 @@ struct Shape {
 };
 
 // values a warp in shared memory (a multiple of 4, so each warp's region
-// starts 16-byte aligned)
-__host__ __device__ constexpr int warp_words(int FP, int d, bool bwd) {
-  return (2 * 32 * ((FP + 31) / 32) + tri(FP) * (bwd ? 3 : 1) + FP * d +
-          2 * FP + (bwd ? 2 * FP : 0) + 3) / 4 * 4;
+// starts 16-byte aligned); the general Matern's backward keeps a fourth
+// triangle, dC/dnu
+__host__ __device__ constexpr int warp_words(int FP, int d, bool bwd,
+                                             bool gen = false) {
+  return (2 * 32 * ((FP + 31) / 32) +
+          tri(FP) * (bwd ? (gen ? 4 : 3) : 1) + FP * d + 2 * FP +
+          (bwd ? 2 * FP : 0) + 3) / 4 * 4;
 }
 
 // 1 / sqrt(x) of a pivot: NaN below 0, Inf at 0 (no clamp)
@@ -145,27 +149,35 @@ __device__ __forceinline__ void gather(const T* __restrict__ locs, int d,
 
 // S = the packed lower triangle of C, pairs spread evenly over the lanes;
 // with GRAD also dC/dsig2 = g(s) and dC/drho = sig2 g'(s) (-s / rho) over
-// the valid pairs (0 elsewhere) into Gs and Gr, laid out as S.  H1 (not
-// GRAD) takes float32's approximate exp and square root; H5 the exact ones:
-// its dC entries are summed over every pair of every point, and there the
-// approximations' error showed against the float32 rule on the card
-// (n=1e6, F=11)
-template <typename T, int FP, bool GRAD>
-__device__ __forceinline__ void build_packed(T* S, T* Gs, T* Gr, const T* pts,
-                                             const T* vf, const T* dg, int d,
-                                             T sig2, T inv_rho, int nu_idx,
+// the valid pairs (0 elsewhere) into Gs and Gr, laid out as S, and for the
+// general Matern dC/dnu = sig2 dg/dnu into Gn.  H1 at a closed form (not
+// GRAD) takes float32's approximate exp and square root (Closed<T, true>);
+// H5 and the general Matern the exact ones: H5's dC entries are summed
+// over every pair of every point, and there the approximations' error
+// showed against the float32 rule on the card (n=1e6, F=11)
+template <typename T, int FP, bool GRAD, typename Cov>
+__device__ __forceinline__ void build_packed(T* S, T* Gs, T* Gr, T* Gn,
+                                             const T* pts, const T* vf,
+                                             const T* dg, int d, T sig2,
+                                             T inv_rho, const Cov& cov,
                                              int lane) {
+  constexpr bool EXACT = GRAD || Cov::kGeneral;
   for (int q = lane; q < tri(FP); q += 32) {
     const int i = tri_row(q), j = q - tri(i);
-    T val, gs = T(0), gr = T(0);
+    T val, gs = T(0), gr = T(0), gn = T(0);
     if (vf[i] != T(0) && vf[j] != T(0)) {
       const T d2 = sq_dist(pts, i, j, d);
       gs = T(1);
       if (d2 > T(0)) {
-        const T s = (GRAD ? sqrt(d2) : sqrt_pos(d2)) * inv_rho;
-        T dgds;
-        gs = matern_g<T, !GRAD>(s, nu_idx, GRAD ? &dgds : (T*)nullptr);
-        if (GRAD) gr = sig2 * dgds * (-s * inv_rho);
+        const T s = (EXACT ? sqrt(d2) : sqrt_pos(d2)) * inv_rho;
+        if (GRAD) {
+          T dgds, dgdnu;
+          gs = cov.grad(s, &dgds, &dgdnu);
+          gr = sig2 * dgds * (-s * inv_rho);
+          if (Cov::kGeneral) gn = sig2 * dgdnu;
+        } else {
+          gs = cov.value(s);
+        }
       }
       val = sig2 * gs;
       if (i == j) val += dg[j];
@@ -176,6 +188,7 @@ __device__ __forceinline__ void build_packed(T* S, T* Gs, T* Gr, const T* pts,
     if (GRAD) {
       Gs[q] = gs;
       Gr[q] = gr;
+      if (Cov::kGeneral) Gn[q] = gn;
     }
   }
 }
@@ -306,12 +319,12 @@ __device__ __forceinline__ void factor_solve(T* S, T* col,
   reg_backward<T, FP>(a, S, y, lane);
 }
 
-template <typename T, int FP>
+template <typename T, int FP, typename Cov>
 __device__ __forceinline__ void h1_body(
     const T* __restrict__ locs, int d, const int* __restrict__ NN,
     const uint8_t* __restrict__ valid, const uint8_t* __restrict__ resp,
-    const T* __restrict__ nug_point, int n, int F, T sig2, T rho, int nu_idx,
-    T* __restrict__ x) {
+    const T* __restrict__ nug_point, int n, int F, T sig2, T rho,
+    const Cov& cov, T* __restrict__ x) {
   constexpr int R = Shape<FP>::R;
   extern __shared__ __align__(16) unsigned char smem_raw[];
   const int lane = threadIdx.x & 31;
@@ -327,8 +340,8 @@ __device__ __forceinline__ void h1_body(
 
   gather<T, FP>(locs, d, NN, valid, resp, nug_point, p, F, pts, vf, dg, lane);
   __syncwarp();
-  build_packed<T, FP, false>(S, nullptr, nullptr, pts, vf, dg, d, sig2,
-                             T(1) / rho, nu_idx, lane);
+  build_packed<T, FP, false>(S, nullptr, nullptr, nullptr, pts, vf, dg, d,
+                             sig2, T(1) / rho, cov, lane);
   __syncwarp();
   T y[R];
 #pragma unroll
@@ -341,23 +354,28 @@ __device__ __forceinline__ void h1_body(
   }
 }
 
-template <typename T, int FP>
+// NPAR = 2 partial sums a point (sig2, rho) at the closed forms, 3 (with
+// nu) for the general Matern
+template <typename T, int FP, typename Cov>
 __device__ __forceinline__ void h5_body(
     const T* __restrict__ locs, int d, const int* __restrict__ NN,
     const uint8_t* __restrict__ valid, const uint8_t* __restrict__ resp,
-    const T* __restrict__ nug_point, int n, int F, T sig2, T rho, int nu_idx,
-    const T* __restrict__ x, const T* __restrict__ xbar,
+    const T* __restrict__ nug_point, int n, int F, T sig2, T rho,
+    const Cov& cov, const T* __restrict__ x, const T* __restrict__ xbar,
     double* __restrict__ dpar, T* __restrict__ dslot) {
   constexpr int R = Shape<FP>::R;
+  constexpr bool GEN = Cov::kGeneral;
+  constexpr int NPAR = GEN ? 3 : 2;
   extern __shared__ __align__(16) unsigned char smem_raw[];
   const int lane = threadIdx.x & 31;
   const int warp = threadIdx.x >> 5;
   T* col = reinterpret_cast<T*>(smem_raw) +
-           (size_t)warp * warp_words(FP, d, true);
+           (size_t)warp * warp_words(FP, d, true, GEN);
   T* S = col + 64 * R;
   T* Gs = S + tri(FP);                     // dC/dsig2
   T* Gr = Gs + tri(FP);                    // dC/drho
-  T* pts = Gr + tri(FP);
+  T* Gn = Gr + tri(FP);                    // dC/dnu (general only)
+  T* pts = Gn + (GEN ? tri(FP) : 0);
   T* vf = pts + FP * d;
   T* dg = vf + FP;
   T* ws = dg + FP;                         // w = C^{-1} xbar
@@ -368,8 +386,8 @@ __device__ __forceinline__ void h5_body(
   gather<T, FP>(locs, d, NN, valid, resp, nug_point, p, F, pts, vf, dg, lane);
   for (int i = lane; i < FP; i += 32) xs[i] = (i < F) ? x[p * F + i] : T(0);
   __syncwarp();
-  build_packed<T, FP, true>(S, Gs, Gr, pts, vf, dg, d, sig2, T(1) / rho,
-                            nu_idx, lane);
+  build_packed<T, FP, true>(S, Gs, Gr, Gn, pts, vf, dg, d, sig2, T(1) / rho,
+                            cov, lane);
   __syncwarp();
   T y[R];
 #pragma unroll
@@ -386,26 +404,125 @@ __device__ __forceinline__ void h5_body(
   __syncwarp();
 
   // K2's packed cotangent gbar[i >= j] = -(w_i x_j + w_j x_i) (-w_i x_i on
-  // the diagonal), contracted pair by pair with dC/dsig2 and dC/drho from
-  // the build, over the valid pairs, spread evenly over the lanes; the
-  // partial sums are kept in double, so a float32 run loses no digits in
-  // them
-  double a_sig2 = 0.0, a_rho = 0.0;
+  // the diagonal), contracted pair by pair with dC/dsig2, dC/drho (and
+  // dC/dnu) from the build, over the valid pairs, spread evenly over the
+  // lanes; the partial sums are kept in double, so a float32 run loses no
+  // digits in them
+  double a_sig2 = 0.0, a_rho = 0.0, a_nu = 0.0;
   for (int q = lane; q < tri(F); q += 32) {
     const int i = tri_row(q), j = q - tri(i);
     if (vf[i] == T(0) || vf[j] == T(0)) continue;  // identity-extended
     const T g = (i == j) ? -ws[i] * xs[i] : -(ws[i] * xs[j] + ws[j] * xs[i]);
     a_sig2 += (double)(g * Gs[q]);
     a_rho += (double)(g * Gr[q]);
+    if (GEN) a_nu += (double)(g * Gn[q]);
   }
   for (int j = lane; j < F; j += 32)
     dslot[p * F + j] = (vf[j] != T(0) && resp[p * F + j] != 0)
                            ? -ws[j] * xs[j] : T(0);
   a_sig2 = warp_sum(a_sig2);
   a_rho = warp_sum(a_rho);
+  if (GEN) a_nu = warp_sum(a_nu);
   if (lane == 0) {
-    dpar[p * 2] = a_sig2;
-    dpar[p * 2 + 1] = a_rho;
+    dpar[p * NPAR] = a_sig2;
+    dpar[p * NPAR + 1] = a_rho;
+    if (GEN) dpar[p * NPAR + 2] = a_nu;
+  }
+}
+
+// ------------------------------------------------------- H8 and K2
+// H8 solve_e0 and solve_e0_bwd (K2 one to one) on a given packed covariance
+// (esqe, user covariances, a full matrix, the general Matern above H1's
+// bound): the build step loads the point's packed row (the upper triangle
+// row by row, row j at off_row(F, j)) from device memory into S, slots >= F
+// identity; the factor and the solves are H1's.  solve_e0_bwd then writes
+// K2's packed cotangent -(w_i x_j + w_j x_i) (-w_i x_i on the diagonal).
+// Shared memory a warp: the two pivot-column buffers and S, and for K2 w and
+// x.
+
+__host__ __device__ constexpr int off_row(int F, int j) {
+  return j * F - j * (j - 1) / 2;
+}
+
+__host__ __device__ constexpr int packed_words(int FP, bool bwd) {
+  return (2 * 32 * ((FP + 31) / 32) + tri(FP) + (bwd ? 2 * FP : 0) + 3) / 4 *
+         4;
+}
+
+template <typename T, int FP>
+__device__ __forceinline__ void load_packed(const T* __restrict__ cp, int F,
+                                            T* S, int lane) {
+  for (int q = lane; q < tri(FP); q += 32) {
+    const int i = tri_row(q), j = q - tri(i);
+    S[q] = i < F ? cp[off_row(F, j) + i - j] : (i == j ? T(1) : T(0));
+  }
+}
+
+template <typename T, int FP>
+__device__ __forceinline__ void h8_body(const T* __restrict__ Cp, int n,
+                                        int F, T* __restrict__ x) {
+  constexpr int R = Shape<FP>::R;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  T* col = reinterpret_cast<T*>(smem_raw) +
+           (size_t)warp * packed_words(FP, false);
+  T* S = col + 64 * R;
+  const long p = (long)blockIdx.x * (blockDim.x >> 5) + warp;
+  if (p >= n) return;                      // whole warp leaves together
+
+  load_packed<T, FP>(Cp + p * ((long)F * (F + 1) / 2), F, S, lane);
+  __syncwarp();
+  T y[R];
+#pragma unroll
+  for (int r = 0; r < R; ++r) y[r] = (lane + 32 * r == 0) ? T(1) : T(0);
+  factor_solve<T, FP>(S, col, y, lane);
+#pragma unroll
+  for (int r = 0; r < R; ++r) {
+    const int i = lane + 32 * r;
+    if (i < F) x[p * F + i] = y[r];
+  }
+}
+
+template <typename T, int FP>
+__device__ __forceinline__ void k2_body(const T* __restrict__ Cp, int n,
+                                        int F, const T* __restrict__ x,
+                                        const T* __restrict__ xbar,
+                                        T* __restrict__ g) {
+  constexpr int R = Shape<FP>::R;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  T* col = reinterpret_cast<T*>(smem_raw) +
+           (size_t)warp * packed_words(FP, true);
+  T* S = col + 64 * R;
+  T* ws = S + tri(FP);                     // w = C^{-1} xbar
+  T* xs = ws + FP;                         // the forward's x
+  const long p = (long)blockIdx.x * (blockDim.x >> 5) + warp;
+  if (p >= n) return;
+  const long P = (long)F * (F + 1) / 2;
+
+  for (int i = lane; i < FP; i += 32) xs[i] = (i < F) ? x[p * F + i] : T(0);
+  load_packed<T, FP>(Cp + p * P, F, S, lane);
+  __syncwarp();
+  T y[R];
+#pragma unroll
+  for (int r = 0; r < R; ++r) {
+    const int i = lane + 32 * r;
+    y[r] = (i < F) ? xbar[p * F + i] : T(0);
+  }
+  factor_solve<T, FP>(S, col, y, lane);
+#pragma unroll
+  for (int r = 0; r < R; ++r) {
+    const int i = lane + 32 * r;
+    if (i < FP) ws[i] = y[r];
+  }
+  __syncwarp();
+  T* gp = g + p * P;
+  for (int q = lane; q < tri(F); q += 32) {  // (i >= j) is upper (j, i)
+    const int i = tri_row(q), j = q - tri(i);
+    gp[off_row(F, j) + i - j] =
+        (i == j) ? -ws[i] * xs[i] : -(ws[i] * xs[j] + ws[j] * xs[i]);
   }
 }
 
@@ -414,7 +531,7 @@ __device__ __forceinline__ void h5_body(
 // ran faster on the card than its own choice (up to ~170 a thread, 12
 // warps) in spite of a few spilled values, except for H5 above FP = 48;
 // elsewhere it is left alone (a bound there made it take more registers,
-// not fewer)
+// not fewer).  The general Matern's kernels follow the same rule.
 __host__ __device__ constexpr bool capped(bool bwd, int FP) {
   return FP >= 40 && (!bwd || FP <= 48);
 }
@@ -423,36 +540,93 @@ constexpr int CAPPED_BLOCKS = 65536 / (128 * 32 * WARPS);
 #define GPV_H1_PARAMS                                                       \
   const T *__restrict__ locs, int d, const int *__restrict__ NN,            \
       const uint8_t *__restrict__ valid, const uint8_t *__restrict__ resp,  \
-      const T *__restrict__ nug_point, int n, int F, T sig2, T rho,         \
-      int nu_idx
-#define GPV_H1_ARGS locs, d, NN, valid, resp, nug_point, n, F, sig2, rho, nu_idx
+      const T *__restrict__ nug_point, int n, int F, T sig2, T rho
+#define GPV_H1_ARGS locs, d, NN, valid, resp, nug_point, n, F, sig2, rho
+#define GPV_H5_PARAMS                                                 \
+  const T *__restrict__ x, const T *__restrict__ xbar,                \
+      double *__restrict__ dpar, T *__restrict__ dslot
+#define GPV_H5_ARGS x, xbar, dpar, dslot
 
+// the closed forms (nu_idx 0, 1, 2) and the general Matern (gp), each
+// with and without the register cap
 template <typename T, int FP>
 __global__ void __launch_bounds__(32 * WARPS)
-    matern_solve_e0_regs_kernel(GPV_H1_PARAMS, T* __restrict__ x) {
-  h1_body<T, FP>(GPV_H1_ARGS, x);
+    matern_solve_e0_regs_kernel(GPV_H1_PARAMS, int nu_idx,
+                                T* __restrict__ x) {
+  h1_body<T, FP>(GPV_H1_ARGS, Closed<T, true>{nu_idx}, x);
 }
 template <typename T, int FP>
 __global__ void __launch_bounds__(32 * WARPS, CAPPED_BLOCKS)
-    matern_solve_e0_regs_capped_kernel(GPV_H1_PARAMS, T* __restrict__ x) {
-  h1_body<T, FP>(GPV_H1_ARGS, x);
+    matern_solve_e0_regs_capped_kernel(GPV_H1_PARAMS, int nu_idx,
+                                       T* __restrict__ x) {
+  h1_body<T, FP>(GPV_H1_ARGS, Closed<T, true>{nu_idx}, x);
 }
 template <typename T, int FP>
 __global__ void __launch_bounds__(32 * WARPS)
-    matern_solve_e0_bwd_regs_kernel(GPV_H1_PARAMS, const T* __restrict__ x,
+    matern_solve_e0_bwd_regs_kernel(GPV_H1_PARAMS, int nu_idx,
+                                    GPV_H5_PARAMS) {
+  h5_body<T, FP>(GPV_H1_ARGS, Closed<T>{nu_idx}, GPV_H5_ARGS);
+}
+template <typename T, int FP>
+__global__ void __launch_bounds__(32 * WARPS, CAPPED_BLOCKS)
+    matern_solve_e0_bwd_regs_capped_kernel(GPV_H1_PARAMS, int nu_idx,
+                                           GPV_H5_PARAMS) {
+  h5_body<T, FP>(GPV_H1_ARGS, Closed<T>{nu_idx}, GPV_H5_ARGS);
+}
+template <typename T, int FP>
+__global__ void __launch_bounds__(32 * WARPS)
+    matern_solve_e0_gen_regs_kernel(GPV_H1_PARAMS, const GenParams<T> gp,
+                                    T* __restrict__ x) {
+  h1_body<T, FP>(GPV_H1_ARGS, General<T>{gp}, x);
+}
+template <typename T, int FP>
+__global__ void __launch_bounds__(32 * WARPS, CAPPED_BLOCKS)
+    matern_solve_e0_gen_regs_capped_kernel(GPV_H1_PARAMS,
+                                           const GenParams<T> gp,
+                                           T* __restrict__ x) {
+  h1_body<T, FP>(GPV_H1_ARGS, General<T>{gp}, x);
+}
+template <typename T, int FP>
+__global__ void __launch_bounds__(32 * WARPS)
+    matern_solve_e0_bwd_gen_regs_kernel(GPV_H1_PARAMS, const GenParams<T> gp,
+                                        GPV_H5_PARAMS) {
+  h5_body<T, FP>(GPV_H1_ARGS, General<T>{gp}, GPV_H5_ARGS);
+}
+template <typename T, int FP>
+__global__ void __launch_bounds__(32 * WARPS, CAPPED_BLOCKS)
+    matern_solve_e0_bwd_gen_regs_capped_kernel(GPV_H1_PARAMS,
+                                               const GenParams<T> gp,
+                                               GPV_H5_PARAMS) {
+  h5_body<T, FP>(GPV_H1_ARGS, General<T>{gp}, GPV_H5_ARGS);
+}
+
+// H8 and K2 take H1's register rule
+template <typename T, int FP>
+__global__ void __launch_bounds__(32 * WARPS)
+    solve_e0_regs_kernel(const T* __restrict__ Cp, int n, int F,
+                         T* __restrict__ x) {
+  h8_body<T, FP>(Cp, n, F, x);
+}
+template <typename T, int FP>
+__global__ void __launch_bounds__(32 * WARPS, CAPPED_BLOCKS)
+    solve_e0_regs_capped_kernel(const T* __restrict__ Cp, int n, int F,
+                                T* __restrict__ x) {
+  h8_body<T, FP>(Cp, n, F, x);
+}
+template <typename T, int FP>
+__global__ void __launch_bounds__(32 * WARPS)
+    solve_e0_bwd_regs_kernel(const T* __restrict__ Cp, int n, int F,
+                             const T* __restrict__ x,
+                             const T* __restrict__ xbar, T* __restrict__ g) {
+  k2_body<T, FP>(Cp, n, F, x, xbar, g);
+}
+template <typename T, int FP>
+__global__ void __launch_bounds__(32 * WARPS, CAPPED_BLOCKS)
+    solve_e0_bwd_regs_capped_kernel(const T* __restrict__ Cp, int n, int F,
+                                    const T* __restrict__ x,
                                     const T* __restrict__ xbar,
-                                    double* __restrict__ dpar,
-                                    T* __restrict__ dslot) {
-  h5_body<T, FP>(GPV_H1_ARGS, x, xbar, dpar, dslot);
-}
-template <typename T, int FP>
-__global__ void __launch_bounds__(32 * WARPS, CAPPED_BLOCKS)
-    matern_solve_e0_bwd_regs_capped_kernel(GPV_H1_PARAMS,
-                                           const T* __restrict__ x,
-                                           const T* __restrict__ xbar,
-                                           double* __restrict__ dpar,
-                                           T* __restrict__ dslot) {
-  h5_body<T, FP>(GPV_H1_ARGS, x, xbar, dpar, dslot);
+                                    T* __restrict__ g) {
+  k2_body<T, FP>(Cp, n, F, x, xbar, g);
 }
 
 constexpr size_t SMEM_MAX = 232448;
@@ -473,36 +647,87 @@ int launch(K kernel, size_t per_warp, int n, cudaStream_t stream, A... args) {
   return (int)cudaGetLastError();
 }
 
+// gen: null at a closed form (nu_idx), else the general Matern's
+// host constants (kernels/matern_solve.py `general_params`)
 template <typename T, int FP>
 int launch_fwd(const T* locs, int d, const int* NN, const uint8_t* valid,
                const uint8_t* resp, const T* nug_point, int n, int F,
-               double sig2, double rho, int nu_idx, T* x,
+               double sig2, double rho, int nu_idx, const double* gen, T* x,
                cudaStream_t stream) {
   const size_t per_warp = warp_words(FP, d, false) * sizeof(T);
+  const T s2 = (T)sig2, rh = (T)rho;
+  if (gen) {
+    const GenParams<T> gp = gen_params<T>(gen);
+    if constexpr (capped(false, FP))
+      return launch(matern_solve_e0_gen_regs_capped_kernel<T, FP>, per_warp,
+                    n, stream, locs, d, NN, valid, resp, nug_point, n, F, s2,
+                    rh, gp, x);
+    else
+      return launch(matern_solve_e0_gen_regs_kernel<T, FP>, per_warp, n,
+                    stream, locs, d, NN, valid, resp, nug_point, n, F, s2, rh,
+                    gp, x);
+  }
   if constexpr (capped(false, FP))
     return launch(matern_solve_e0_regs_capped_kernel<T, FP>, per_warp, n,
-                  stream, locs, d, NN, valid, resp, nug_point, n, F, (T)sig2,
-                  (T)rho, nu_idx, x);
+                  stream, locs, d, NN, valid, resp, nug_point, n, F, s2, rh,
+                  nu_idx, x);
   else
     return launch(matern_solve_e0_regs_kernel<T, FP>, per_warp, n, stream,
-                  locs, d, NN, valid, resp, nug_point, n, F, (T)sig2, (T)rho,
-                  nu_idx, x);
+                  locs, d, NN, valid, resp, nug_point, n, F, s2, rh, nu_idx,
+                  x);
 }
 
 template <typename T, int FP>
 int launch_bwd(const T* locs, int d, const int* NN, const uint8_t* valid,
                const uint8_t* resp, const T* nug_point, int n, int F,
-               double sig2, double rho, int nu_idx, const T* x,
-               const T* xbar, double* dpar, T* dslot, cudaStream_t stream) {
+               double sig2, double rho, int nu_idx, const double* gen,
+               const T* x, const T* xbar, double* dpar, T* dslot,
+               cudaStream_t stream) {
+  const T s2 = (T)sig2, rh = (T)rho;
+  if (gen) {
+    const size_t per_warp = warp_words(FP, d, true, true) * sizeof(T);
+    const GenParams<T> gp = gen_params<T>(gen);
+    if constexpr (capped(true, FP))
+      return launch(matern_solve_e0_bwd_gen_regs_capped_kernel<T, FP>,
+                    per_warp, n, stream, locs, d, NN, valid, resp, nug_point,
+                    n, F, s2, rh, gp, x, xbar, dpar, dslot);
+    else
+      return launch(matern_solve_e0_bwd_gen_regs_kernel<T, FP>, per_warp, n,
+                    stream, locs, d, NN, valid, resp, nug_point, n, F, s2, rh,
+                    gp, x, xbar, dpar, dslot);
+  }
   const size_t per_warp = warp_words(FP, d, true) * sizeof(T);
   if constexpr (capped(true, FP))
     return launch(matern_solve_e0_bwd_regs_capped_kernel<T, FP>, per_warp, n,
-                  stream, locs, d, NN, valid, resp, nug_point, n, F, (T)sig2,
-                  (T)rho, nu_idx, x, xbar, dpar, dslot);
+                  stream, locs, d, NN, valid, resp, nug_point, n, F, s2, rh,
+                  nu_idx, x, xbar, dpar, dslot);
   else
     return launch(matern_solve_e0_bwd_regs_kernel<T, FP>, per_warp, n,
-                  stream, locs, d, NN, valid, resp, nug_point, n, F, (T)sig2,
-                  (T)rho, nu_idx, x, xbar, dpar, dslot);
+                  stream, locs, d, NN, valid, resp, nug_point, n, F, s2, rh,
+                  nu_idx, x, xbar, dpar, dslot);
+}
+
+template <typename T, int FP>
+int launch_h8(const T* Cp, int n, int F, T* x, cudaStream_t stream) {
+  const size_t per_warp = packed_words(FP, false) * sizeof(T);
+  if constexpr (capped(false, FP))
+    return launch(solve_e0_regs_capped_kernel<T, FP>, per_warp, n, stream,
+                  Cp, n, F, x);
+  else
+    return launch(solve_e0_regs_kernel<T, FP>, per_warp, n, stream, Cp, n,
+                  F, x);
+}
+
+template <typename T, int FP>
+int launch_k2(const T* Cp, int n, int F, const T* x, const T* xbar, T* g,
+              cudaStream_t stream) {
+  const size_t per_warp = packed_words(FP, true) * sizeof(T);
+  if constexpr (capped(false, FP))
+    return launch(solve_e0_bwd_regs_capped_kernel<T, FP>, per_warp, n,
+                  stream, Cp, n, F, x, xbar, g);
+  else
+    return launch(solve_e0_bwd_regs_kernel<T, FP>, per_warp, n, stream, Cp,
+                  n, F, x, xbar, g);
 }
 
 // the instantiated sizes FP...: a launch at F takes the first FP >= F
@@ -520,6 +745,20 @@ struct Sizes {
     if (F <= FP) return launch_bwd<T, FP>(args...);
     if constexpr (sizeof...(Rest) > 0)
       return Sizes<T, Rest...>::bwd(F, args...);
+    return (int)cudaErrorInvalidValue;
+  }
+  template <typename... A>
+  static int h8(int F, A... args) {
+    if (F <= FP) return launch_h8<T, FP>(args...);
+    if constexpr (sizeof...(Rest) > 0)
+      return Sizes<T, Rest...>::h8(F, args...);
+    return (int)cudaErrorInvalidValue;
+  }
+  template <typename... A>
+  static int k2(int F, A... args) {
+    if (F <= FP) return launch_k2<T, FP>(args...);
+    if constexpr (sizeof...(Rest) > 0)
+      return Sizes<T, Rest...>::k2(F, args...);
     return (int)cudaErrorInvalidValue;
   }
 };

@@ -50,6 +50,22 @@
 //    (F*F + F*d + 3F) values for H1 and (F*F + F*d + 4F) for H5, so the
 //    wrapper raises for F above the 48 KB per block bound it states, on both
 //    routes.
+// Both routes take the covariance kind as a template parameter
+// (matern_common.cuh): Closed, the closed forms at smoothness 0.5, 1.5 and
+// 2.5, and General, the built-in Matern at any other smoothness
+// (matern_solve_e0[general] and matern_solve_e0_bwd[general]).  General
+// replaces, for that covariance, the JAX package's build_cov_packed + K3
+// (gpvecchia_tpu/kernels/u_entries.py:296-320) and K2 with the Matern VJP
+// (kernels/covariance.py:113-162): each pair's g(s) = exp(c0 + nu log s +
+// log K_nu(s)) is evaluated in the kernel by the Temme / CF2 / climb
+// algorithm of kernels/bessel.py from constants that depend on nu alone
+// (computed once a launch on the host, one kernel parameter), and the
+// backward adds dC/dnu from log K at nu + h and |nu - h| to the
+// contraction (a third partial sum a point).  No (n, P) covariance is
+// written.  What bounds General: the pairs' arithmetic, ~500 instructions
+// a pair for log K on Temme's branch (40 terms, 5 transcendentals), ~3x
+// that in the backward; the factor's pivot chain stays as above.
+//
 // Coordinates are gathered inside the kernels, so no (n, F(F+1)/2) distance
 // array exists in device memory.  A non-SPD pivot is not clamped and the
 // warp does not exit early: a negative pivot gives NaN and a zero pivot
@@ -59,18 +75,21 @@
 // H8 solve_e0 replaces K3, `_solve_e0_kernel` (pallas_call at
 // pallas_crout.py:140, `_solve_e0_impl`, entry `packed_solve_e0`): the
 // same factor and solve as H1 on a packed covariance that the caller built
-// (general smoothness, esqe, user covariances, a full covariance matrix).
-// Packed Cp (n, P) point-major, P = F(F+1)/2, row i of the upper triangle
-// at [off_i, off_i + F - i), which is column i of the lower triangle, so
-// the unpack is F contiguous slab reads.  One warp per point, the point's
-// F x F matrix in shared memory (F*F + 2F values a warp).  What bounds it:
-// like H1, the serial pivot chain of each warp, not memory: a point reads
-// P values (3.4 KB at F=41 in f32) and does ~F^3/3 FMAs.  Non-SPD rows give
-// NaN/Inf in their own row only.
+// (esqe, user covariances, a full covariance matrix, the general Matern
+// above H1's bound on F).  Packed Cp (n, P) point-major, P = F(F+1)/2, row
+// i of the upper triangle at [off_i, off_i + F - i), which is column i of
+// the lower triangle.  H8 takes H1's two routes by the same rule: up to
+// F = 64 in f32 and 32 in f64 the register route (matern_regs.cuh
+// `h8_body`: the build step loads the packed row into the lane-spread
+// triangle), above it this file's (one warp per point, the point's F x F
+// matrix in shared memory, F*F + 2F values a warp, the unpack F contiguous
+// slab reads).  What bounds it: like H1, the serial pivot chain of each
+// warp, not memory: a point reads P values (3.4 KB at F=41 in f32) and does
+// ~F^3/3 FMAs.  Non-SPD rows give NaN/Inf in their own row only.
 //
 // solve_e0_bwd is K2 itself, one to one: packed Cp (n, P), x and xbar
-// (n, F) in, K2's packed gbar (n, P) out: H8's backward.  It shares the
-// factor and solve routines.
+// (n, F) in, K2's packed gbar (n, P) out: H8's backward, on H8's routes
+// (`k2_body` on the register route).
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -79,6 +98,10 @@
 
 namespace {
 
+using gpv::Closed;
+using gpv::GenParams;
+using gpv::General;
+using gpv::gen_params;
 using gpv::matern_corr;
 using gpv::pair_dist;
 using gpv::warp_sum;
@@ -87,13 +110,13 @@ using gpv::warp_sum;
 // warp's shared memory, then fill the lower triangle of C (column-major):
 // response neighbors carry their nugget on the diagonal, invalid slots are
 // identity-extended.
-template <typename T>
+template <typename T, typename Cov>
 __device__ void build_cov(const T* __restrict__ locs, int d,
                           const int* __restrict__ NN,
                           const uint8_t* __restrict__ valid,
                           const uint8_t* __restrict__ resp,
                           const T* __restrict__ nug_point, long p, int F,
-                          T sig2, T rho, int nu_idx, T* C, T* pts, T* dg,
+                          T sig2, T rho, const Cov& cov, T* C, T* pts, T* dg,
                           T* vf, int lane) {
   for (int i = lane; i < F; i += 32) {
     const int q = NN[p * F + i];
@@ -107,8 +130,8 @@ __device__ void build_cov(const T* __restrict__ locs, int d,
     for (int i = j + lane; i < F; i += 32) {
       T val;
       if (vf[i] != T(0) && vf[j] != T(0)) {
-        val = sig2 * matern_corr(pair_dist(pts, i, j, d), rho, nu_idx,
-                                 (T*)nullptr);
+        val = sig2 * matern_corr(cov, pair_dist(pts, i, j, d), rho,
+                                 (T*)nullptr, (T*)nullptr);
         if (i == j) val += dg[j];
       } else {
         val = (i == j) ? T(1) : T(0);
@@ -156,12 +179,12 @@ __device__ void solve_inplace(const T* C, const T* dg, T* b, int F,
   }
 }
 
-template <typename T>
-__global__ void matern_solve_e0_kernel(
+template <typename T, typename Cov>
+__device__ __forceinline__ void h1_shared_body(
     const T* __restrict__ locs, int d, const int* __restrict__ NN,
     const uint8_t* __restrict__ valid, const uint8_t* __restrict__ resp,
-    const T* __restrict__ nug_point, int n, int F, T sig2, T rho, int nu_idx,
-    T* __restrict__ x) {
+    const T* __restrict__ nug_point, int n, int F, T sig2, T rho,
+    const Cov& cov, T* __restrict__ x) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
   T* smem = reinterpret_cast<T*>(smem_raw);
   const int lane = threadIdx.x & 31;
@@ -175,20 +198,43 @@ __global__ void matern_solve_e0_kernel(
   if (p >= n) return;                      // whole warp leaves together
 
   for (int i = lane; i < F; i += 32) b[i] = (i == 0) ? T(1) : T(0);
-  build_cov(locs, d, NN, valid, resp, nug_point, p, F, sig2, rho, nu_idx, C,
+  build_cov(locs, d, NN, valid, resp, nug_point, p, F, sig2, rho, cov, C,
             pts, dg, vf, lane);
   chol_inplace(C, dg, F, lane);
   solve_inplace(C, dg, b, F, lane);
   for (int i = lane; i < F; i += 32) x[p * F + i] = b[i];
 }
 
+#define GPV_SH_PARAMS                                                      \
+  const T *__restrict__ locs, int d, const int *__restrict__ NN,           \
+      const uint8_t *__restrict__ valid, const uint8_t *__restrict__ resp, \
+      const T *__restrict__ nug_point, int n, int F, T sig2, T rho
+#define GPV_SH_ARGS locs, d, NN, valid, resp, nug_point, n, F, sig2, rho
+
 template <typename T>
-__global__ void matern_solve_e0_bwd_kernel(
+__global__ void matern_solve_e0_kernel(GPV_SH_PARAMS, int nu_idx,
+                                       T* __restrict__ x) {
+  h1_shared_body(GPV_SH_ARGS, Closed<T>{nu_idx}, x);
+}
+
+template <typename T>
+__global__ void matern_solve_e0_gen_kernel(GPV_SH_PARAMS,
+                                           const GenParams<T> gp,
+                                           T* __restrict__ x) {
+  h1_shared_body(GPV_SH_ARGS, General<T>{gp}, x);
+}
+
+// NPAR = 2 partial sums a point (sig2, rho) at the closed forms, 3 (with
+// nu) for the general Matern
+template <typename T, typename Cov>
+__device__ __forceinline__ void h5_shared_body(
     const T* __restrict__ locs, int d, const int* __restrict__ NN,
     const uint8_t* __restrict__ valid, const uint8_t* __restrict__ resp,
-    const T* __restrict__ nug_point, int n, int F, T sig2, T rho, int nu_idx,
-    const T* __restrict__ x, const T* __restrict__ xbar,
+    const T* __restrict__ nug_point, int n, int F, T sig2, T rho,
+    const Cov& cov, const T* __restrict__ x, const T* __restrict__ xbar,
     double* __restrict__ dpar, T* __restrict__ dslot) {
+  constexpr bool GEN = Cov::kGeneral;
+  constexpr int NPAR = GEN ? 3 : 2;
   extern __shared__ __align__(16) unsigned char smem_raw[];
   T* smem = reinterpret_cast<T*>(smem_raw);
   const int lane = threadIdx.x & 31;
@@ -206,23 +252,25 @@ __global__ void matern_solve_e0_bwd_kernel(
     w[i] = xbar[p * F + i];
     xs[i] = x[p * F + i];
   }
-  build_cov(locs, d, NN, valid, resp, nug_point, p, F, sig2, rho, nu_idx, C,
+  build_cov(locs, d, NN, valid, resp, nug_point, p, F, sig2, rho, cov, C,
             pts, dg, vf, lane);
   chol_inplace(C, dg, F, lane);
   solve_inplace(C, dg, w, F, lane);
 
-  // K2's packed cotangent, contracted pair by pair (i >= j); the partial
-  // sums are kept in double, so a float32 run loses no digits in them
-  double a_sig2 = 0.0, a_rho = 0.0;
+  // K2's packed cotangent, contracted pair by pair (i >= j) with dC/dsig2,
+  // dC/drho (and dC/dnu), recomputed here; the partial sums are kept in
+  // double, so a float32 run loses no digits in them
+  double a_sig2 = 0.0, a_rho = 0.0, a_nu = 0.0;
   for (int j = 0; j < F; ++j) {
     for (int i = j + lane; i < F; i += 32) {
       if (vf[i] == T(0) || vf[j] == T(0)) continue;  // identity-extended
       const T g = (i == j) ? -w[i] * xs[i] : -(w[i] * xs[j] + w[j] * xs[i]);
       const T dist = pair_dist(pts, i, j, d);
-      T dgds;
-      const T corr = matern_corr(dist, rho, nu_idx, &dgds);
+      T dgds, dgdnu;
+      const T corr = matern_corr(cov, dist, rho, &dgds, &dgdnu);
       a_sig2 += (double)(g * corr);
       a_rho += (double)(g * sig2 * dgds * (-(dist / rho) / rho));
+      if (GEN) a_nu += (double)(g * sig2 * dgdnu);
     }
   }
   for (int j = lane; j < F; j += 32)
@@ -230,10 +278,30 @@ __global__ void matern_solve_e0_bwd_kernel(
                            ? -w[j] * xs[j] : T(0);
   a_sig2 = warp_sum(a_sig2);
   a_rho = warp_sum(a_rho);
+  if (GEN) a_nu = warp_sum(a_nu);
   if (lane == 0) {
-    dpar[p * 2] = a_sig2;
-    dpar[p * 2 + 1] = a_rho;
+    dpar[p * NPAR] = a_sig2;
+    dpar[p * NPAR + 1] = a_rho;
+    if (GEN) dpar[p * NPAR + 2] = a_nu;
   }
+}
+
+#define GPV_SH5_PARAMS                                  \
+  const T *__restrict__ x, const T *__restrict__ xbar, \
+      double *__restrict__ dpar, T *__restrict__ dslot
+#define GPV_SH5_ARGS x, xbar, dpar, dslot
+
+template <typename T>
+__global__ void matern_solve_e0_bwd_kernel(GPV_SH_PARAMS, int nu_idx,
+                                           GPV_SH5_PARAMS) {
+  h5_shared_body(GPV_SH_ARGS, Closed<T>{nu_idx}, GPV_SH5_ARGS);
+}
+
+template <typename T>
+__global__ void matern_solve_e0_bwd_gen_kernel(GPV_SH_PARAMS,
+                                               const GenParams<T> gp,
+                                               GPV_SH5_PARAMS) {
+  h5_shared_body(GPV_SH_ARGS, General<T>{gp}, GPV_SH5_ARGS);
 }
 
 // packed row j of the upper triangle is column j of the lower one
@@ -298,18 +366,27 @@ __global__ void solve_e0_bwd_kernel(const T* __restrict__ Cp, int n, int F,
                                  : -(w[i] * xs[j] + w[j] * xs[i]);
 }
 
+// gen: null at a closed form (nu_idx), else the general Matern's
+// host constants (kernels/matern_solve.py `general_params`)
 template <typename T>
 int launch_matern_solve_e0(const T* locs, int d, const int* NN,
                            const uint8_t* valid, const uint8_t* resp,
                            const T* nug_point, int n, int F, double sig2,
-                           double rho, int nu_idx, T* x,
+                           double rho, int nu_idx, const double* gen, T* x,
                            int warps_per_block, cudaStream_t stream) {
   if (n == 0) return 0;
   const size_t smem =
       (size_t)warps_per_block * (F * F + F * d + 3 * F) * sizeof(T);
   const int blocks = (n + warps_per_block - 1) / warps_per_block;
-  matern_solve_e0_kernel<T><<<blocks, 32 * warps_per_block, smem, stream>>>(
-      locs, d, NN, valid, resp, nug_point, n, F, (T)sig2, (T)rho, nu_idx, x);
+  if (gen)
+    matern_solve_e0_gen_kernel<T>
+        <<<blocks, 32 * warps_per_block, smem, stream>>>(
+            locs, d, NN, valid, resp, nug_point, n, F, (T)sig2, (T)rho,
+            gen_params<T>(gen), x);
+  else
+    matern_solve_e0_kernel<T><<<blocks, 32 * warps_per_block, smem, stream>>>(
+        locs, d, NN, valid, resp, nug_point, n, F, (T)sig2, (T)rho, nu_idx,
+        x);
   return (int)cudaGetLastError();
 }
 
@@ -317,17 +394,24 @@ template <typename T>
 int launch_matern_solve_e0_bwd(const T* locs, int d, const int* NN,
                                const uint8_t* valid, const uint8_t* resp,
                                const T* nug_point, int n, int F, double sig2,
-                               double rho, int nu_idx, const T* x,
-                               const T* xbar, double* dpar, T* dslot,
-                               int warps_per_block, cudaStream_t stream) {
+                               double rho, int nu_idx, const double* gen,
+                               const T* x, const T* xbar, double* dpar,
+                               T* dslot, int warps_per_block,
+                               cudaStream_t stream) {
   if (n == 0) return 0;
   const size_t smem =
       (size_t)warps_per_block * (F * F + F * d + 4 * F) * sizeof(T);
   const int blocks = (n + warps_per_block - 1) / warps_per_block;
-  matern_solve_e0_bwd_kernel<T>
-      <<<blocks, 32 * warps_per_block, smem, stream>>>(
-          locs, d, NN, valid, resp, nug_point, n, F, (T)sig2, (T)rho, nu_idx,
-          x, xbar, dpar, dslot);
+  if (gen)
+    matern_solve_e0_bwd_gen_kernel<T>
+        <<<blocks, 32 * warps_per_block, smem, stream>>>(
+            locs, d, NN, valid, resp, nug_point, n, F, (T)sig2, (T)rho,
+            gen_params<T>(gen), x, xbar, dpar, dslot);
+  else
+    matern_solve_e0_bwd_kernel<T>
+        <<<blocks, 32 * warps_per_block, smem, stream>>>(
+            locs, d, NN, valid, resp, nug_point, n, F, (T)sig2, (T)rho,
+            nu_idx, x, xbar, dpar, dslot);
   return (int)cudaGetLastError();
 }
 
@@ -360,20 +444,21 @@ extern "C" {
 int gpv_matern_solve_e0_f32(const float* locs, int d, const int* NN,
                             const uint8_t* valid, const uint8_t* resp,
                             const float* nug_point, int n, int F, double sig2,
-                            double rho, int nu_idx, float* x,
-                            int warps_per_block, void* stream) {
+                            double rho, int nu_idx, const double* gen,
+                            float* x, int warps_per_block, void* stream) {
   return launch_matern_solve_e0<float>(locs, d, NN, valid, resp, nug_point, n,
-                                       F, sig2, rho, nu_idx, x,
+                                       F, sig2, rho, nu_idx, gen, x,
                                        warps_per_block, (cudaStream_t)stream);
 }
 
 int gpv_matern_solve_e0_f64(const double* locs, int d, const int* NN,
                             const uint8_t* valid, const uint8_t* resp,
                             const double* nug_point, int n, int F,
-                            double sig2, double rho, int nu_idx, double* x,
+                            double sig2, double rho, int nu_idx,
+                            const double* gen, double* x,
                             int warps_per_block, void* stream) {
   return launch_matern_solve_e0<double>(locs, d, NN, valid, resp, nug_point,
-                                        n, F, sig2, rho, nu_idx, x,
+                                        n, F, sig2, rho, nu_idx, gen, x,
                                         warps_per_block, (cudaStream_t)stream);
 }
 
@@ -381,24 +466,26 @@ int gpv_matern_solve_e0_bwd_f32(const float* locs, int d, const int* NN,
                                 const uint8_t* valid, const uint8_t* resp,
                                 const float* nug_point, int n, int F,
                                 double sig2, double rho, int nu_idx,
-                                const float* x, const float* xbar,
+                                const double* gen, const float* x,
+                                const float* xbar,
                                 double* dpar, float* dslot,
                                 int warps_per_block, void* stream) {
   return launch_matern_solve_e0_bwd<float>(
-      locs, d, NN, valid, resp, nug_point, n, F, sig2, rho, nu_idx, x, xbar,
-      dpar, dslot, warps_per_block, (cudaStream_t)stream);
+      locs, d, NN, valid, resp, nug_point, n, F, sig2, rho, nu_idx, gen, x,
+      xbar, dpar, dslot, warps_per_block, (cudaStream_t)stream);
 }
 
 int gpv_matern_solve_e0_bwd_f64(const double* locs, int d, const int* NN,
                                 const uint8_t* valid, const uint8_t* resp,
                                 const double* nug_point, int n, int F,
                                 double sig2, double rho, int nu_idx,
-                                const double* x, const double* xbar,
+                                const double* gen, const double* x,
+                                const double* xbar,
                                 double* dpar, double* dslot,
                                 int warps_per_block, void* stream) {
   return launch_matern_solve_e0_bwd<double>(
-      locs, d, NN, valid, resp, nug_point, n, F, sig2, rho, nu_idx, x, xbar,
-      dpar, dslot, warps_per_block, (cudaStream_t)stream);
+      locs, d, NN, valid, resp, nug_point, n, F, sig2, rho, nu_idx, gen, x,
+      xbar, dpar, dslot, warps_per_block, (cudaStream_t)stream);
 }
 
 int gpv_solve_e0_f32(const float* Cp, int n, int F, float* x,

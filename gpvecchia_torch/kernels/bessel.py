@@ -51,22 +51,17 @@ def _rgamma(z):
     return torch.exp(-torch.lgamma(z))
 
 
-def _temme_kmu(mu, x):
-    """(K_mu(x), K_{mu+1}(x)) via Temme's series; accurate for 0 < x <= 3.
-    ``mu`` is 0-dim or has x's shape."""
+def _temme_mu(mu):
+    """What Temme's series needs of mu alone, with its guards: (pi mu /
+    sin(pi mu), gamma_1, gamma_2, 1/Gamma(1+mu), 1/Gamma(1-mu)).  The
+    general Matern's kernels take these once a launch
+    (``matern_solve.general_params``)."""
     mu2 = mu * mu
-    x2 = x * 0.5
     pimu = math.pi * mu
     small_pimu = torch.abs(pimu) < 1e-3
     pimu_s = torch.where(small_pimu, 1.0, pimu)
     fact = torch.where(small_pimu, 1.0 + pimu * pimu / 6.0,
                        pimu_s / torch.sin(pimu_s))
-    d = -torch.log(x2)
-    e = mu * d
-    small_e = torch.abs(e) < 1e-3
-    e_s = torch.where(small_e, 1.0, e)
-    fact2 = torch.where(small_e, 1.0 + e * e / 6.0, torch.sinh(e_s) / e_s)
-
     gampl = _rgamma(1.0 + mu)   # 1/Gamma(1+mu)
     gammi = _rgamma(1.0 - mu)   # 1/Gamma(1-mu)
     small_mu = torch.abs(mu) < 3e-2
@@ -74,6 +69,24 @@ def _temme_kmu(mu, x):
     gam1 = torch.where(small_mu, -(_EULER_GAMMA + _C3 * mu2),
                        (gammi - gampl) / (2.0 * mu_s))
     gam2 = (gammi + gampl) / 2.0
+    return fact, gam1, gam2, gampl, gammi
+
+
+def _temme_kmu(mu, x, terms=False):
+    """(K_mu(x), K_{mu+1}(x)) via Temme's series; accurate for 0 < x <= 3.
+    ``mu`` is 0-dim or has x's shape.  ``terms``: also the count of terms
+    after which the general Matern's kernels leave the series at each x
+    (``csrc/matern_common.cuh`` ``log_kv``: from the third term on, once a
+    term and its bound for K_{mu+1} are at most an eighth of an ulp of
+    x's dtype of their sums; 40 where none is)."""
+    mu2 = mu * mu
+    x2 = x * 0.5
+    fact, gam1, gam2, gampl, gammi = _temme_mu(mu)
+    d = -torch.log(x2)
+    e = mu * d
+    small_e = torch.abs(e) < 1e-3
+    e_s = torch.where(small_e, 1.0, e)
+    fact2 = torch.where(small_e, 1.0 + e * e / 6.0, torch.sinh(e_s) / e_s)
 
     ff = fact * (gam1 * torch.cosh(e) + gam2 * fact2 * d)
     ee = torch.exp(e)
@@ -83,6 +96,10 @@ def _temme_kmu(mu, x):
     d2 = x2 * x2
     ksum = ff
     ksum1 = p
+    if terms:
+        qulp = torch.finfo(x.dtype).eps / 8.0
+        n_terms = torch.full_like(x, float(_SERIES_ITERS))
+        left = torch.zeros_like(x, dtype=torch.bool)
     for i in range(1, _SERIES_ITERS + 1):
         fi = float(i)
         ff = (fi * ff + p + q) / (fi * fi - mu2)
@@ -91,11 +108,20 @@ def _temme_kmu(mu, x):
         q = q / (fi + mu)
         ksum = ksum + c * ff
         ksum1 = ksum1 + c * (p - fi * ff)
+        if terms and i >= 3:
+            now = ~left & ((c * ff).abs() <= qulp * ksum.abs()) & (
+                c * (p.abs() + fi * ff.abs()) <= qulp * ksum1.abs())
+            n_terms[now] = fi
+            left |= now
+    if terms:
+        return ksum, ksum1 * 2.0 / x, n_terms
     return ksum, ksum1 * 2.0 / x
 
 
-def _cf2_kmu(mu, x):
-    """(K_mu(x) e^x, K_{mu+1}(x) e^x) via Steed's CF2; accurate for x > 3."""
+def _cf2_kmu(mu, x, steps=False):
+    """(K_mu(x) e^x, K_{mu+1}(x) e^x) via Steed's CF2; accurate for x > 3.
+    ``steps``: also the steps each element takes to converge (63 where it
+    does not), as the general Matern's kernels take them."""
     mu2 = mu * mu
     b = 2.0 * (1.0 + x)
     d = 1.0 / b
@@ -110,6 +136,7 @@ def _cf2_kmu(mu, x):
     s = 1.0 + q * delh
     eps = 1e-16 if x.dtype == torch.float64 else 1e-8
     done = torch.zeros_like(x, dtype=torch.bool)
+    n_steps = torch.full_like(x, float(_CF_ITERS - 1)) if steps else None
     for i in range(2, _CF_ITERS + 1):
         fi = float(i)
         an = a - 2.0 * (fi - 1.0)
@@ -125,6 +152,8 @@ def _cf2_kmu(mu, x):
         dels = qn * delhn
         sn = s + dels
         new_done = done | (torch.abs(dels) < torch.abs(sn) * eps)
+        if steps:
+            n_steps[new_done & ~done] = fi - 1.0
         h = torch.where(done, h, hn)
         s = torch.where(done, s, sn)
         a, b, c, d, delh, q1, q2, q = an, bn, cn, dn, delhn, q2, qnew, qn
@@ -134,6 +163,8 @@ def _cf2_kmu(mu, x):
     h = a1 * h
     kmu_s = torch.sqrt(math.pi / (2.0 * x)) / s
     kmu1_s = kmu_s * (mu + x + 0.5 - h) / x
+    if steps:
+        return kmu_s, kmu1_s, n_steps
     return kmu_s, kmu1_s
 
 

@@ -19,8 +19,8 @@ from torch.autograd.function import once_differentiable
 
 from .bessel import log_kv_impl, log_kv_vjp
 
-__all__ = ["matern", "matern_dgds", "nu_index", "esqe", "pairwise_dist",
-           "cross_dist", "make_kernel_fn", "safe_dist"]
+__all__ = ["matern", "matern_dgds", "matern_general_dg", "nu_index", "esqe",
+           "pairwise_dist", "cross_dist", "make_kernel_fn", "safe_dist"]
 
 _SQRT3 = 1.7320508075688772
 _SQRT5 = 2.2360679774997896
@@ -99,19 +99,24 @@ class _Matern(torch.autograd.Function):
         if ctx.idx != GENERAL:
             dGds = _dgds(s, G, ctx.idx)
         else:
-            # G = 2^(1-nu)/Gamma(nu) s^nu K_nu(s): dG/ds = G (nu/s + dlogK/ds)
-            # and dG/dnu = G (-log 2 - digamma(nu) + log s + dlogK/dnu); the
-            # forward's log K_nu(s) is the same value at every pos element
-            dlks, dlkn = log_kv_vjp(nu, s, lk)
-            dGds = G * (nu / s + dlks)
-            dGdnu = G * (-math.log(2.0) - torch.special.digamma(nu)
-                         + torch.log(s) + dlkn)
+            # the forward's log K_nu(s) is the same value at every pos element
+            dGds, dGdnu = _general_dG(s, nu, G, lk)
             dcov[2] = torch.sum(g * sig2 * torch.where(pos, dGdnu, 0.0))
         dGds = torch.where(pos, dGds, 0.0)
         dcov[0] = torch.sum(g * G)
         dcov[1] = torch.sum(g * (sig2 * dGds) * (-(s / rho)))  # ds/drho
         ddist = g * sig2 * dGds / rho if ctx.needs_input_grad[0] else None
         return ddist, dcov, None
+
+
+def _general_dG(s, nu, G, lk):
+    """(dG/ds, dG/dnu) of G = 2^(1-nu)/Gamma(nu) s^nu K_nu(s) at s > 0,
+    given G and lk = log K_nu(s): dG/ds = G (nu/s + dlogK/ds) and dG/dnu =
+    G (-log 2 - digamma(nu) + log s + dlogK/dnu), by ``log_kv_vjp``."""
+    dlks, dlkn = log_kv_vjp(nu, s, lk)
+    return (G * (nu / s + dlks),
+            G * (-math.log(2.0) - torch.special.digamma(nu) + torch.log(s)
+                 + dlkn))
 
 
 def _dgds(s, G, idx):
@@ -145,6 +150,21 @@ def matern_dgds(dist: torch.Tensor, rho, idx: int):
     g = _correlation(s, idx)
     return (torch.where(pos, g, 1.0),
             torch.where(pos, _dgds(s, g, idx), 0.0))
+
+
+def matern_general_dg(dist: torch.Tensor, rho, nu):
+    """(g, dg/ds, dg/dnu) of the Matern at a smoothness without closed form,
+    at s = dist / rho, with g = 1 and both derivatives 0 at dist == 0: the
+    forward and the VJP rule of ``_Matern`` (dg/ds through K_{nu+1}/K_nu,
+    dg/dnu by the central difference of ``bessel.log_kv_vjp``)."""
+    pos = dist > 0
+    s = torch.where(pos, dist, 1.0) / rho
+    lk = log_kv_impl(nu, s)
+    g = torch.exp((1.0 - nu) * math.log(2.0) - torch.lgamma(nu)
+                  + nu * torch.log(s) + lk)
+    dgds, dgdnu = _general_dG(s, nu, g, lk)
+    return (torch.where(pos, g, 1.0), torch.where(pos, dgds, 0.0),
+            torch.where(pos, dgdnu, 0.0))
 
 
 def esqe(dist: torch.Tensor, covparms: torch.Tensor) -> torch.Tensor:

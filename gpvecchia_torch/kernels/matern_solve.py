@@ -1,5 +1,5 @@
-"""H1 ``matern_solve_e0``: per point, x = C^{-1} e0 for the closed-form
-Matern covariance C of its conditioning set; H5 ``matern_solve_e0_bwd``, its
+"""H1 ``matern_solve_e0``: per point, x = C^{-1} e0 for the built-in Matern
+covariance C of its conditioning set; H5 ``matern_solve_e0_bwd``, its
 backward in (covparms, nuggets); H8 ``solve_e0``, the same solve on a given
 packed covariance; and ``solve_e0_bwd``, H8's backward.
 
@@ -10,49 +10,138 @@ H5 replaces K2, ``_solve_e0_bwd_kernel`` (``pallas_call`` at :155,
 and the Matern VJP that the fused solver's backward (:302-356) runs around
 it.  H8 replaces K3, ``_solve_e0_kernel`` (``pallas_call`` at :140,
 ``_solve_e0_impl``, entry ``packed_solve_e0``).  ``solve_e0_bwd`` is K2 one
-to one.  H1 and H5 take one of two CUDA routes, by F and dtype alone
-(``route``): up to ``REGS_MAX_F`` the register route
+to one.
+
+H1 and H5 take the closed forms (smoothness 0.5, 1.5, 2.5) and, as
+``matern_solve_e0[general]`` and ``matern_solve_e0_bwd[general]``, the
+Matern at any other smoothness: there each pair's log K_nu is evaluated
+in the kernel (``csrc/matern_common.cuh`` ``log_kv``) from constants that
+depend on nu alone, computed once a launch on the host
+(``general_params``).  This is what the JAX package computes for a general
+smoothness with ``build_cov_packed`` + K3 (``u_entries.py:296-320``) and,
+in the backward, K2 with ``covariance.py`` ``_matern_bwd``; no packed
+covariance is written.  H1 and H5 take one of two CUDA routes, by F and
+dtype alone (``route``): up to ``REGS_MAX_F`` the register route
 (``csrc/matern_regs.cuh``: one warp a point, F padded with identity slots to
 a multiple of 8, each lane's rows of the matrix in registers), above it the
 shared-memory route (``csrc/matern_solve.cu``: one warp a point, the
-matrix in shared memory), which H8 and ``solve_e0_bwd`` also take.  None is
-bound by memory (see the note at the head of ``csrc/matern_solve.cu``).
+matrix in shared memory).  H8 and ``solve_e0_bwd`` take the same two
+routes by the same rule, the register route's build step loading the
+point's packed row.  None is bound by memory (see the note at the head of
+``csrc/matern_solve.cu``).
 Each ``*_plain`` function is the plain
 PyTorch version (batched ``torch.linalg.cholesky_ex`` and
-``cholesky_solve``); CPU tensors take it, CUDA tensors the kernel.
+``cholesky_solve``; log K_nu by ``kernels/bessel.py``); CPU tensors take
+it, CUDA tensors the kernel.
 
 ``matern_solve_e0`` is a ``torch.autograd.Function`` on both devices: its
 backward is H5 on CUDA and H5's plain version on the CPU, and returns the
 gradients of ``covparms`` and ``nug_point`` on their own devices and dtypes.
-d/dnu is 0: the smoothness selects a closed form.
+d/dnu is 0 at the closed forms (the smoothness selects one) and the
+central difference of log K_nu (``bessel.log_kv_vjp``) elsewhere.
 """
 
 from __future__ import annotations
 
+import functools
+import math
+
+import numpy as np
 import torch
 from torch.autograd.function import once_differentiable
 
 from ..csrc import cuda
-from .covariance import GENERAL, matern, matern_dgds, nu_index, safe_dist
+from .bessel import _MAX_CLIMB, _SERIES_ITERS, _temme_mu, nu_step
+from .covariance import (GENERAL, matern, matern_dgds, matern_general_dg,
+                         nu_index, safe_dist)
 
 __all__ = ["matern_solve_e0", "matern_solve_e0_plain", "matern_solve_e0_bwd",
            "matern_solve_e0_bwd_plain", "solve_e0", "solve_e0_plain",
            "packed_solve_e0", "solve_e0_bwd", "solve_e0_bwd_plain",
-           "max_neighbors"]
+           "max_neighbors", "general_params", "GENERAL_FWD", "GENERAL_BWD"]
 
 _SMEM_PER_BLOCK = 48 * 1024     # static-launch shared-memory bound
 _MAX_WARPS = 8
 _FWD_VECS, _BWD_VECS = 3, 4     # F-vectors per warp beside C and coordinates
-# H1 and H5 take the register route (csrc/matern_regs.cuh) up to this F,
-# its largest instance in csrc/matern_regs_f32.cu and _f64.cu, and the
-# shared-memory route (csrc/matern_solve.cu) above it
+# H1, H5, H8 and solve_e0_bwd take the register route (csrc/matern_regs.cuh)
+# up to this F, its largest instance in csrc/matern_regs_f32.cu and _f64.cu,
+# and the shared-memory route (csrc/matern_solve.cu) above it
 REGS_MAX_F = {torch.float32: 64, torch.float64: 32}
 
 
 def route(F: int, dtype: torch.dtype) -> str:
-    """The CUDA route of H1 and H5 at F and dtype: "registers" or
-    "shared".  Chosen by F and dtype alone."""
+    """The CUDA route of H1, H5, H8 and ``solve_e0_bwd`` at F and dtype:
+    "registers" or "shared".  Chosen by F and dtype alone."""
     return "registers" if F <= REGS_MAX_F[dtype] else "shared"
+
+
+# the layout of ``csrc/matern_common.cuh`` ``gen_params``: per order of log K
+# (nu, nu + h, |nu - h|) KV_WORDS values, then nu, c0, dnu0, 1 / (2 h)
+KV_WORDS = 8 + 3 * _SERIES_ITERS
+
+
+def _kv_words(mus, ks) -> list[float]:
+    """What log K_{mu+k} needs of its order alone, in float64, for each
+    order: mu, mu^2, then ``bessel._temme_mu``'s pi mu / sin(pi mu),
+    gamma_1 and gamma_2 (with its guards), 0.5 Gamma(1 + mu), 0.5 Gamma(1 -
+    mu), k, and the 40 terms' 1 / (i^2 - mu^2), 1 / (i - mu), 1 / (i +
+    mu)."""
+    consts = torch.stack(_temme_mu(torch.tensor(mus, dtype=torch.float64)),
+                         1).tolist()
+    i = np.arange(1, _SERIES_ITERS + 1, dtype=np.float64)
+    words = []
+    for mu, k, (fact, gam1, gam2, gampl, gammi) in zip(mus, ks, consts):
+        with np.errstate(divide="ignore"):
+            tables = np.concatenate([1.0 / (i * i - mu * mu), 1.0 / (i - mu),
+                                     1.0 / (i + mu)])
+        words += [mu, mu * mu, fact, gam1, gam2, 0.5 / gampl, 0.5 / gammi,
+                  float(k)] + tables.tolist()
+    return words
+
+
+def general_params(nu, dtype: torch.dtype) -> np.ndarray:
+    """The general Matern's constants for one launch at smoothness ``nu``
+    in ``dtype``: float64 (3 KV_WORDS + 4,), read-only, the kernel
+    parameter of the general instances of H1 and H5.  The orders nu, nu + h
+    and |nu - h| (h = ``bessel.nu_step(dtype)``), their k = clamp(round(.),
+    0, 24) and mu = order - k are formed in ``dtype``, as the plain version
+    forms them; what follows from them in float64.  Kept for the last
+    smoothnesses: a value's backward and repeated calls at one smoothness
+    reuse them (they take some tenths of a millisecond of host time)."""
+    return _general_params(float(nu), dtype)
+
+
+@functools.lru_cache(maxsize=64)
+def _general_params(nu: float, dtype: torch.dtype) -> np.ndarray:
+    npt = np.float32 if dtype == torch.float32 else np.float64
+    nu_t = npt(nu)
+    h = npt(nu_step(dtype))
+    orders = (nu_t, npt(nu_t + h), np.abs(npt(nu_t - h)))
+    ks = [float(np.clip(np.round(o), 0, _MAX_CLIMB)) for o in orders]
+    words = _kv_words([float(npt(o - npt(k))) for o, k in zip(orders, ks)],
+                      ks)
+    nu64 = float(nu_t)
+    digamma = float(torch.special.digamma(torch.tensor(nu64,
+                                                       dtype=torch.float64)))
+    words += [nu64, (1.0 - nu64) * math.log(2.0) - math.lgamma(nu64),
+              -math.log(2.0) - digamma, 1.0 / (2.0 * float(h))]
+    out = np.asarray(words, dtype=np.float64)
+    out.setflags(write=False)
+    return out
+
+
+class LaunchCount:
+    """The launch count of a kernel that has no wrapper of its own."""
+
+    def __init__(self, name: str):
+        self.__name__ = name
+        self.launches = 0
+
+
+# the general Matern's instances of H1 and H5 (``matern_solve_e0`` and
+# ``matern_solve_e0_bwd`` count the closed forms' launches)
+GENERAL_FWD = LaunchCount("matern_solve_e0[general]")
+GENERAL_BWD = LaunchCount("matern_solve_e0_bwd[general]")
 
 
 def _smem_per_warp(F: int, d: int, itemsize: int, vecs: int) -> int:
@@ -72,7 +161,11 @@ def max_neighbors(d: int, dtype: torch.dtype) -> int:
     F x F matrix, F x d coordinates and four F-vectors (H5's) must fit 48 KB
     of shared memory.  For d=2 that is F=75 in float64, F=107 in float32.
     The forward holds three F-vectors but takes the same bound, so a value
-    is only computed where its gradient can be."""
+    is only computed where its gradient can be.  The general Matern takes
+    the same bound: on the shared-memory route its backward recomputes
+    dC/dnu in the contraction loop (no fourth vector), and the register
+    route's fourth triangle fits its 227 KB at every F it takes.  Above the
+    bound ``u_entries`` gives the general Matern to the packed path."""
     return _max_f(d, dtype, _BWD_VECS)
 
 
@@ -134,12 +227,14 @@ def matern_solve_e0_plain(locs, NN, valid, resp, nug_point, covparms):
 
 def matern_solve_e0_bwd_plain(locs, NN, valid, resp, nug_point, covparms, x,
                               xbar):
-    """Plain version of H5: (dpar (n, 2) float64, dslot (n, F)).
+    """Plain version of H5: (dpar (n, 2) float64, dslot (n, F)); dpar is
+    (n, 3) for the general Matern.
 
     With w = C^{-1} xbar, the cotangent of C is -w x^T; dpar[p] holds its
-    contraction with dC/dsig2 = g(s) and dC/drho = sig2 g'(s) (-s/rho) over
-    the point's valid pairs, dslot[p, j] its diagonal entry at a valid
-    response-conditioned slot (the cotangent of that slot's nugget)."""
+    contraction with dC/dsig2 = g(s), dC/drho = sig2 g'(s) (-s/rho) (and
+    dC/dnu = sig2 dg/dnu) over the point's valid pairs, dslot[p, j] its
+    diagonal entry at a valid response-conditioned slot (the cotangent of
+    that slot's nugget)."""
     n, F = NN.shape
     cp = torch.as_tensor(covparms, dtype=locs.dtype).to(locs.device)
     sig2, rho, idx = cp[0], cp[1], nu_index(cp[2])
@@ -152,15 +247,20 @@ def matern_solve_e0_bwd_plain(locs, NN, valid, resp, nug_point, covparms, x,
         w = _solve(C, xbar[s:s + step])
         gbar = -w[:, :, None] * x[s:s + step, None, :]
         gbar = torch.where(v[:, :, None] & v[:, None, :], gbar, 0.0)
-        g, dgds = matern_dgds(dist, rho, idx)
-        dpar.append(torch.stack(
-            [(gbar * g).sum((1, 2), dtype=torch.float64),
-             (gbar * sig2 * dgds * (-(dist / rho) / rho)).sum(
-                 (1, 2), dtype=torch.float64)], 1))
+        if idx == GENERAL:
+            g, dgds, dgdnu = matern_general_dg(dist, rho, cp[2])
+        else:
+            g, dgds = matern_dgds(dist, rho, idx)
+        sums = [(gbar * g).sum((1, 2), dtype=torch.float64),
+                (gbar * sig2 * dgds * (-(dist / rho) / rho)).sum(
+                    (1, 2), dtype=torch.float64)]
+        if idx == GENERAL:
+            sums.append((gbar * sig2 * dgdnu).sum((1, 2), dtype=torch.float64))
+        dpar.append(torch.stack(sums, 1))
         dslot.append(torch.where(v & r, torch.diagonal(gbar, 0, 1, 2), 0.0))
     if not dpar:
-        return (locs.new_zeros(0, 2, dtype=torch.float64),
-                locs.new_zeros(0, F))
+        return (locs.new_zeros(0, 3 if idx == GENERAL else 2,
+                               dtype=torch.float64), locs.new_zeros(0, F))
     return torch.cat(dpar), torch.cat(dslot)
 
 
@@ -193,14 +293,13 @@ def _zero_rows(xbar):
     return torch.all(xbar == 0, dim=1, keepdim=True)
 
 
-def _params(covparms):
+def _params(covparms, dtype):
+    """(sig2, rho, nu_idx, gen): gen is None at a closed form, else the
+    general Matern's ``general_params`` in ``dtype``."""
     cp = [float(c) for c in covparms.detach().cpu().tolist()]
     idx = nu_index(cp[2])
-    if idx == GENERAL:
-        raise ValueError(f"matern_solve_e0: smoothness {cp[2]} has no "
-                         "closed form (0.5, 1.5, 2.5); general smoothness "
-                         "takes build_cov_packed + solve_e0")
-    return cp[0], cp[1], idx
+    gen = general_params(cp[2], dtype) if idx == GENERAL else None
+    return cp[0], cp[1], idx, gen
 
 
 def _device(name, t):
@@ -216,13 +315,13 @@ def _launch(locs, NN, valid, resp, nug_point, covparms):
     d = locs.shape[1]
     warps = _warps("matern_solve_e0", F, d, locs.dtype, _FWD_VECS,
                    max_neighbors(d, locs.dtype))
-    sig2, rho, nu_idx = _params(covparms)
+    sig2, rho, nu_idx, gen = _params(covparms, locs.dtype)
     locs, NN, valid, resp, nug_point = (
         t.contiguous() for t in (locs, NN, valid, resp, nug_point))
     x = torch.empty(n, F, dtype=locs.dtype, device=locs.device)
     args = (locs.data_ptr(), d, NN.data_ptr(), valid.data_ptr(),
             resp.data_ptr(), nug_point.data_ptr(), n, F, sig2, rho, nu_idx,
-            x.data_ptr())
+            None if gen is None else gen.ctypes.data, x.data_ptr())
     if route(F, locs.dtype) == "registers":
         rc = cuda.entry("gpv_matern_solve_e0_regs", locs.dtype)(
             *args, cuda.stream(locs.device))
@@ -230,7 +329,7 @@ def _launch(locs, NN, valid, resp, nug_point, covparms):
         rc = cuda.entry("gpv_matern_solve_e0", locs.dtype)(
             *args, warps, cuda.stream(locs.device))
     cuda.check(rc, "matern_solve_e0")
-    matern_solve_e0.launches += 1
+    (matern_solve_e0 if gen is None else GENERAL_FWD).launches += 1
     return x
 
 
@@ -239,14 +338,16 @@ def _launch_bwd(locs, NN, valid, resp, nug_point, covparms, x, xbar):
     d = locs.shape[1]
     warps = _warps("matern_solve_e0_bwd", F, d, locs.dtype, _BWD_VECS,
                    max_neighbors(d, locs.dtype))
-    sig2, rho, nu_idx = _params(covparms)
+    sig2, rho, nu_idx, gen = _params(covparms, locs.dtype)
     locs, NN, valid, resp, nug_point, x, xbar = (
         t.contiguous() for t in (locs, NN, valid, resp, nug_point, x, xbar))
-    dpar = torch.empty(n, 2, dtype=torch.float64, device=locs.device)
+    dpar = torch.empty(n, 2 if gen is None else 3, dtype=torch.float64,
+                       device=locs.device)
     dslot = torch.empty(n, F, dtype=locs.dtype, device=locs.device)
     args = (locs.data_ptr(), d, NN.data_ptr(), valid.data_ptr(),
             resp.data_ptr(), nug_point.data_ptr(), n, F, sig2, rho, nu_idx,
-            x.data_ptr(), xbar.data_ptr(), dpar.data_ptr(), dslot.data_ptr())
+            None if gen is None else gen.ctypes.data, x.data_ptr(),
+            xbar.data_ptr(), dpar.data_ptr(), dslot.data_ptr())
     if route(F, locs.dtype) == "registers":
         rc = cuda.entry("gpv_matern_solve_e0_bwd_regs", locs.dtype)(
             *args, cuda.stream(locs.device))
@@ -254,7 +355,7 @@ def _launch_bwd(locs, NN, valid, resp, nug_point, covparms, x, xbar):
         rc = cuda.entry("gpv_matern_solve_e0_bwd", locs.dtype)(
             *args, warps, cuda.stream(locs.device))
     cuda.check(rc, "matern_solve_e0_bwd")
-    matern_solve_e0_bwd.launches += 1
+    (matern_solve_e0_bwd if gen is None else GENERAL_BWD).launches += 1
     return dpar, dslot
 
 
@@ -262,23 +363,29 @@ def matern_solve_e0_bwd(locs, NN, valid, resp, nug_point, covparms, x, xbar):
     """(dcovparms, dnug_point): the VJP of ``matern_solve_e0`` at its
     solution x for the cotangent xbar (both (n, F)); a point whose xbar is
     0 contributes 0.  dcovparms has covparms' shape, device and dtype
-    (d/dnu = 0); dnug_point has nug_point's.  CPU tensors take the plain
-    version, CUDA tensors H5."""
+    (d/dnu = 0 at the closed forms); dnug_point has nug_point's.  CPU
+    tensors take the plain version, CUDA tensors H5."""
     _check(locs, NN, valid, resp, nug_point, x, xbar)
     if not torch.is_tensor(covparms):
         covparms = torch.tensor(covparms, dtype=torch.float64)
-    _params(covparms)                       # raises off the closed forms
     if _device("matern_solve_e0_bwd", locs):
         dpar, dslot = _launch_bwd(locs, NN, valid, resp, nug_point, covparms,
                                   x, xbar)
     else:
         dpar, dslot = matern_solve_e0_bwd_plain(locs, NN, valid, resp,
                                                 nug_point, covparms, x, xbar)
+    return reduce_bwd(dpar, dslot, xbar, NN, nug_point, covparms)
+
+
+def reduce_bwd(dpar, dslot, xbar, NN, nug_point, covparms):
+    """(dcovparms, dnug_point) from H5's per-point outputs: a point whose
+    xbar is 0 contributes 0 (also where its dpar and dslot are NaN: a row
+    the likelihood dropped), the rest is summed."""
     zero = _zero_rows(xbar)
     dpar = torch.where(zero, 0.0, dpar)
     dslot = torch.where(zero, 0.0, dslot)
     dcov = torch.zeros(covparms.shape, dtype=torch.float64, device=dpar.device)
-    dcov[:2] = dpar.sum(0)
+    dcov[:dpar.shape[1]] = dpar.sum(0)
     dnug = torch.zeros_like(nug_point).index_add_(
         0, NN.reshape(-1).long(), dslot.reshape(-1))
     return dcov.to(covparms.device, covparms.dtype), dnug
@@ -316,13 +423,13 @@ def matern_solve_e0(locs, NN, valid, resp, nug_point, covparms):
     locs: (n_all, d) coordinates; NN: (n, F) int32 neighbor ids (self
     first, clamped >= 0); valid: (n, F) bool; resp: (n, F) bool, the
     response-conditioned slots whose nugget ``nug_point[NN]`` is added on
-    the diagonal; covparms: (sig2, rho, nu) with nu in {0.5, 1.5, 2.5}, on
-    any device.  CPU tensors take the plain version, CUDA tensors the kernel.
+    the diagonal; covparms: (sig2, rho, nu), any nu > 0, on any device.
+    CPU tensors take the plain version, CUDA tensors the kernel (at a
+    smoothness without closed form its general instance).
     """
     _check(locs, NN, valid, resp, nug_point)
     if not torch.is_tensor(covparms):
         covparms = torch.tensor(covparms, dtype=torch.float64)
-    _params(covparms)                       # raises off the closed forms
     return _MaternSolveE0.apply(locs, NN, valid, resp, nug_point, covparms)
 
 
@@ -363,8 +470,12 @@ def _launch_solve(Cp, F):
                    _max_f(0, Cp.dtype, _FWD_VECS))
     Cp = Cp.contiguous()
     x = torch.empty(n, F, dtype=Cp.dtype, device=Cp.device)
-    rc = cuda.entry("gpv_solve_e0", Cp.dtype)(
-        Cp.data_ptr(), n, F, x.data_ptr(), warps, cuda.stream(Cp.device))
+    if route(F, Cp.dtype) == "registers":
+        rc = cuda.entry("gpv_solve_e0_regs", Cp.dtype)(
+            Cp.data_ptr(), n, F, x.data_ptr(), cuda.stream(Cp.device))
+    else:
+        rc = cuda.entry("gpv_solve_e0", Cp.dtype)(
+            Cp.data_ptr(), n, F, x.data_ptr(), warps, cuda.stream(Cp.device))
     cuda.check(rc, "solve_e0")
     solve_e0.launches += 1
     return x
@@ -429,9 +540,13 @@ def _launch_solve_bwd(Cp, x, xbar):
                    _max_f(0, Cp.dtype, _FWD_VECS))
     Cp, x, xbar = (t.contiguous() for t in (Cp, x, xbar))
     g = torch.empty_like(Cp)
-    rc = cuda.entry("gpv_solve_e0_bwd", Cp.dtype)(
-        Cp.data_ptr(), n, F, x.data_ptr(), xbar.data_ptr(), g.data_ptr(),
-        warps, cuda.stream(Cp.device))
+    args = (Cp.data_ptr(), n, F, x.data_ptr(), xbar.data_ptr(), g.data_ptr())
+    if route(F, Cp.dtype) == "registers":
+        rc = cuda.entry("gpv_solve_e0_bwd_regs", Cp.dtype)(
+            *args, cuda.stream(Cp.device))
+    else:
+        rc = cuda.entry("gpv_solve_e0_bwd", Cp.dtype)(
+            *args, warps, cuda.stream(Cp.device))
     cuda.check(rc, "solve_e0_bwd")
     solve_e0_bwd.launches += 1
     return g

@@ -6,12 +6,14 @@ diagonal), and the U column is col = x / sqrt(x_self): col[0] is the U
 diagonal, col[j] the entry at neighbor j's row.  As in the JAX package's
 ``kernels/u_entries.py``:
 
-* the built-in Matern at a closed-form smoothness (0.5, 1.5, 2.5) builds,
-  factors and solves in one kernel, H1 (``matern_solve.matern_solve_e0``);
-* every other covariance (general smoothness, ``esqe``, user callables, a
-  full covariance matrix) builds the packed covariance in torch
-  (``build_cov_packed``) in row chunks and solves it with H8
-  (``matern_solve.solve_e0``).  Its backward recomputes each chunk with
+* the built-in Matern builds, factors and solves in one kernel, H1
+  (``matern_solve.matern_solve_e0``): at a closed-form smoothness (0.5,
+  1.5, 2.5) always, at any other smoothness (log K_nu evaluated in the
+  kernel) up to ``matern_solve.max_neighbors``;
+* every other covariance (``esqe``, user callables, a full covariance
+  matrix, and the general Matern above that bound) builds the packed
+  covariance in torch (``build_cov_packed``) in row chunks and solves it
+  with H8 (``matern_solve.solve_e0``).  Its backward recomputes each chunk with
   gradients (as ``jax.checkpoint`` does in the JAX package) and
   differentiates ``matern_solve.packed_solve_e0``, whose backward
   ``solve_e0_bwd`` (K2) gives the packed cotangent that torch autograd
@@ -26,7 +28,8 @@ import torch
 from torch.autograd.function import once_differentiable
 
 from .covariance import GENERAL, matern, nu_index, safe_dist
-from .matern_solve import matern_solve_e0, packed_solve_e0, solve_e0
+from .matern_solve import (matern_solve_e0, max_neighbors, packed_solve_e0,
+                           solve_e0)
 
 __all__ = ["u_entries", "build_cov_packed", "packed_pair_dist"]
 
@@ -144,7 +147,9 @@ def u_entries(locs, NN, valid, cond, nug_point, covparms, kernel_fn=None,
         covparms = torch.tensor(covparms, dtype=torch.float64)
     if covmat is None and kernel_fn in (None, matern):
         idx = nu_index(covparms[2])            # read on the host, once
-        if idx != GENERAL:
+        # by F alone: the fused kernels' shared-memory bound
+        if idx != GENERAL or NN.shape[1] <= max_neighbors(locs.shape[1],
+                                                          locs.dtype):
             x = matern_solve_e0(locs, NN, valid, valid & ~cond, nug_point,
                                 covparms)
             return _postprocess(x, valid)

@@ -68,6 +68,28 @@ def test_log_kv_scalar_nu_matches_grid(nu):
     np.testing.assert_array_equal(a, b)
 
 
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+def test_series_counts_leave_values_unchanged(dtype):
+    """The counts by which ``chip_smoke.py`` bounds the general Matern's
+    kernels, ``_temme_kmu(terms=True)`` and ``_cf2_kmu(steps=True)``, come
+    with the values returned without them: Temme's series is left after 3
+    to 40 terms, no fewer at a larger x (the bound reads them on a grid
+    of x), and CF2 converges within its steps."""
+    for mu in (-0.5, -0.2, 0.0, 0.3, 0.5):
+        m = torch.tensor(mu, dtype=dtype)
+        x = torch.linspace(0.01, 3.0, 300, dtype=dtype)
+        k0, k1, terms = bessel._temme_kmu(m, x, terms=True)
+        a0, a1 = bessel._temme_kmu(m, x)
+        assert torch.equal(k0, a0) and torch.equal(k1, a1)
+        assert 3 <= terms.min() and terms.max() <= 40
+        assert bool((terms.diff() >= 0).all())
+        x = torch.linspace(3.01, 60.0, 300, dtype=dtype)
+        k0, k1, steps = bessel._cf2_kmu(m, x, steps=True)
+        a0, a1 = bessel._cf2_kmu(m, x)
+        assert torch.equal(k0, a0) and torch.equal(k1, a1)
+        assert 1 <= steps.min() and steps.max() < 63
+
+
 def test_log_kv_grads_match_jax():
     """d/dx is the exact recurrence (same arithmetic: 1e-10 of the largest
     entry); d/dnu is a central difference over 2h = 6e-6, which divides the

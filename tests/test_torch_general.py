@@ -204,10 +204,12 @@ def test_callable_path_equals_builtin_matern_path(monkeypatch):
     np.testing.assert_allclose(b[2], a[2], rtol=1e-10)
 
 
-def test_poisoned_rows_on_the_packed_path():
-    """A non-SPD conditioning matrix on H8's path: the row is dropped, and
-    the gradient (solve_e0_bwd gives a zero cotangent row a zero
-    contribution) is finite and equals jax.grad over the other rows."""
+def _poisoned_rows(kernel_fn):
+    """u_entries at smoothness 0.8 with one response nugget of -1e3 (every
+    conditioning matrix that holds it is not SPD) through ``kernel_fn``:
+    the bad rows are dropped, and the gradient (the backward kernels give a
+    zero cotangent row a zero contribution) is finite and equals jax.grad
+    over the other rows."""
     from gpvecchia_tpu.kernels.covariance import matern as jax_matern
     from gpvecchia_tpu.kernels.u_entries import u_entries as jax_u_entries
     from gpvecchia_torch.kernels.u_entries import u_entries
@@ -221,7 +223,7 @@ def test_poisoned_rows_on_the_packed_path():
     c = torch.tensor(cp, requires_grad=True)
     g = torch.tensor(nug, requires_grad=True)
     col, bad = u_entries(*(torch.as_tensor(a) for a in (
-        plan.locs, plan.NN, plan.valid, plan.cond)), g, c)
+        plan.locs, plan.NN, plan.valid, plan.cond)), g, c, kernel_fn)
     assert bad.any()
     (torch.where(bad[:, None], 0.0, col) * torch.as_tensor(W)).sum().backward()
     good = ~bad.numpy()
@@ -241,6 +243,88 @@ def test_poisoned_rows_on_the_packed_path():
     np.testing.assert_allclose(g.grad.numpy(), ref[1], rtol=0,
                                atol=GRAD_REL * scale)
     np.testing.assert_allclose(c.grad[2].item(), ref[0][2], rtol=DNU_REL)
+
+
+def test_poisoned_rows_on_the_packed_path(monkeypatch):
+    """A non-SPD conditioning matrix on H8's path (the Matern passed as a
+    callable): see ``_poisoned_rows``."""
+    from gpvecchia_torch.kernels.covariance import matern
+    calls = {"solve_e0_bwd": 0}
+    fn = MS.solve_e0_bwd_plain
+
+    def spy(*a):
+        calls["solve_e0_bwd"] += 1
+        return fn(*a)
+    monkeypatch.setattr(MS, "solve_e0_bwd_plain", spy)
+    _poisoned_rows(lambda dist, cp: matern(dist, cp))
+    assert calls["solve_e0_bwd"] > 0
+
+
+def test_poisoned_rows_on_the_fused_general_path(monkeypatch):
+    """The same on the built-in Matern, whose general smoothness H1 and H5
+    take: see ``_poisoned_rows``."""
+    calls = {"bwd": 0}
+    fn = MS.matern_solve_e0_bwd_plain
+
+    def spy(*a):
+        calls["bwd"] += 1
+        return fn(*a)
+    monkeypatch.setattr(MS, "matern_solve_e0_bwd_plain", spy)
+    _poisoned_rows(None)
+    assert calls["bwd"] == 1
+
+
+# the built-in Matern at general smoothness, on H1 and H5's path: k = 0 ...
+# 4 and mu of both signs, at a range that puts pairs on both sides of s = 3
+# (Temme's series and CF2)
+FUSED_NUS = [0.3, 0.8, 1.2, 2.0, 3.7]
+FUSED_RANGE = 0.04
+
+
+@pytest.fixture(scope="module")
+def fused_specs():
+    locs, z = _data(n=150, seed=8)
+    nug = np.full(len(z), 0.1)
+    st, sj = (GT.vecchia_specify(locs, m=8), GJ.vecchia_specify(locs, m=8))
+    NN = st.NNarray
+    ok = NN >= 0
+    pts = st.locsord[np.where(ok, NN, 0)]
+    dist = np.linalg.norm(pts[:, :, None] - pts[:, None, :], axis=-1)
+    s = dist[ok[:, :, None] & ok[:, None, :]] / FUSED_RANGE
+    assert (s > 3).any() and ((s > 0) & (s <= 3)).any()
+    return z, nug, GT.loglik_fn(st, device="cpu"), GJ.loglik_fn(sj)
+
+
+@pytest.mark.parametrize("nu", FUSED_NUS)
+def test_fused_general_grad_matches_jax(fused_specs, nu, monkeypatch):
+    """Value and gradient in (sig2, rho, nu, nugget) of the log-likelihood
+    whose U entries H1 and H5 build at a general smoothness (their plain
+    versions here) vs the JAX package's value and jax.grad: value 1e-10
+    relative, (sig2, rho, nugget) 1e-8 of |g|max, d/dnu 1e-6 relative."""
+    calls = {"packed": 0}
+    fn = MS.solve_e0_plain
+
+    def spy(*a):
+        calls["packed"] += 1
+        return fn(*a)
+    monkeypatch.setattr(MS, "solve_e0_plain", spy)
+    z, nug, ft, fj = fused_specs
+    cp = np.array([1.0, FUSED_RANGE, nu])
+    lj, gj = jax.value_and_grad(lambda c, g: fj(jnp.asarray(z), c, g),
+                                argnums=(0, 1))(jnp.asarray(cp),
+                                                jnp.asarray(nug))
+    c = torch.tensor(cp, requires_grad=True)
+    g = torch.tensor(nug, requires_grad=True)
+    lt = ft(torch.as_tensor(z), c, g)
+    dc, dg = torch.autograd.grad(lt, (c, g))
+    assert calls["packed"] == 0
+    np.testing.assert_allclose(lt.item(), float(lj), rtol=REL)
+    ref = [np.asarray(a) for a in gj]
+    scale = max(np.abs(ref[0][:2]).max(), np.abs(ref[1]).max())
+    np.testing.assert_allclose(dc[:2].numpy(), ref[0][:2], rtol=0,
+                               atol=1e-8 * scale)
+    np.testing.assert_allclose(dg.numpy(), ref[1], rtol=0, atol=1e-8 * scale)
+    np.testing.assert_allclose(dc[2].item(), ref[0][2], rtol=DNU_REL)
 
 
 def test_covmat_cache_tells_matrices_apart():

@@ -227,3 +227,175 @@ def test_kernel_backward_raises(which):
     grads = torch.autograd.grad(fn(*ins), ins, create_graph=True)
     with pytest.raises(RuntimeError, match="once_differentiable"):
         sum(g.sum() for g in grads).backward()
+
+
+# ------------------- the built-in Matern at a general smoothness ----
+#
+# H1 and H5 take every smoothness: off the closed forms each pair's log K_nu
+# is evaluated in the kernel (csrc/matern_common.cuh) from the per-launch
+# constants of ``general_params``.  On the CPU the plain versions run,
+# through covariance.matern and bessel.log_kv_vjp.
+
+GENERAL_NUS = [0.3, 0.8, 1.2, 2.0, 3.7]     # k = 0 ... 4, mu of both signs
+GENERAL_RANGE = 0.04                       # pairs on both sides of s = 3
+
+
+def _general_inputs(nu, dtype=torch.float64, n=150, m=8, seed=21):
+    plan, nug_point = _spec_inputs(n=n, m=m, seed=seed)
+    dist = np.linalg.norm(plan.locs[plan.NN][:, :, None]
+                          - plan.locs[plan.NN][:, None, :], axis=-1)
+    s = dist[plan.valid[:, :, None] & plan.valid[:, None, :]] / GENERAL_RANGE
+    assert (s > 3).any() and ((s > 0) & (s <= 3)).any()
+    args = (torch.as_tensor(plan.locs, dtype=dtype), torch.as_tensor(plan.NN),
+            torch.as_tensor(plan.valid),
+            torch.as_tensor(plan.valid & ~plan.cond),
+            torch.as_tensor(nug_point, dtype=dtype))
+    return plan, nug_point, args, np.array([1.3, GENERAL_RANGE, nu])
+
+
+@pytest.fixture
+def interpret_k3(monkeypatch):
+    monkeypatch.setattr(pc, "INTERPRET", True)
+    pc._make_solver.cache_clear()
+    yield
+    pc._make_solver.cache_clear()
+
+
+@pytest.mark.parametrize("nu", GENERAL_NUS)
+def test_general_plain_matches_pallas_k3(interpret_k3, nu):
+    """The general Matern's plain H1 vs the JAX package's general path, its
+    packed covariance solved by K3 (``packed_solve_e0``) in interpret mode:
+    1e-10 of the largest entry in float64."""
+    from gpvecchia_tpu.kernels.u_entries import \
+        build_cov_packed as jax_build_cov_packed
+    plan, nug_point, args, cp = _general_inputs(nu)
+    x = matern_solve_e0_plain(*args, torch.as_tensor(cp)).numpy()
+    Cp = jax_build_cov_packed(jnp.asarray(plan.locs), jnp.asarray(plan.NN),
+                              jnp.asarray(plan.valid), jnp.asarray(plan.cond),
+                              jnp.asarray(nug_point), jax_matern,
+                              jnp.asarray(cp))
+    xj = np.asarray(pc.packed_solve_e0(Cp, plan.NN.shape[1])).T
+    np.testing.assert_allclose(x, xj, rtol=0, atol=1e-10 * np.abs(xj).max())
+
+
+def test_general_params_reproduce_log_kv():
+    """The per-launch constants of the general kernels, run through the
+    kernel's recurrences (Temme's series with the tabled reciprocals, the
+    climb and its next ratio) in float64 numpy, give ``bessel.log_kv_impl``
+    at nu, nu + h and |nu - h| and K_{nu+1}/K_nu on x <= 3, also at a nu
+    within 1e-3 of a half-integer, where nu + h rounds to another k."""
+    from gpvecchia_torch.kernels import bessel
+    x = np.geomspace(1e-3, 3.0, 200)
+    for nu in GENERAL_NUS + [1.4995]:
+        for dtype in (torch.float64, torch.float32):
+            w = ms.general_params(nu, dtype)
+            h = bessel.nu_step(dtype)
+            nut = torch.tensor(nu, dtype=dtype)
+            orders = (nut, nut + h, torch.abs(nut - h))
+            for e, order in enumerate(orders):
+                c = w[e * ms.KV_WORDS:(e + 1) * ms.KV_WORDS]
+                mu, _, fact, gam1, gam2, hgp, hgm, k = c[:8]
+                rmm, rm, rp = c[8:].reshape(3, -1)
+                d = -np.log(x / 2)
+                md = mu * d
+                ee = np.exp(md)
+                small = np.abs(md) < 1e-3
+                fact2 = np.where(small, 1.0 + md * md / 6.0,
+                                 np.sinh(md) / np.where(small, 1.0, md))
+                ff = fact * (gam1 * np.cosh(md) + gam2 * fact2 * d)
+                p, q, cc = ee * hgp, hgm / ee, np.ones_like(x)
+                ksum, ksum1 = ff, p
+                for i in range(1, 41):
+                    ff = (i * ff + p + q) * rmm[i - 1]
+                    cc = cc * (x / 2) ** 2 / i
+                    p, q = p * rm[i - 1], q * rp[i - 1]
+                    ksum, ksum1 = ksum + cc * ff, ksum1 + cc * (p - i * ff)
+                kmu, kmu1 = ksum, ksum1 * 2 / x
+                r, lk = kmu1 / kmu, np.log(kmu1 if k > 0 else kmu)
+                for j in range(1, int(k)):
+                    r = 2 * (mu + j) / x + 1 / r
+                    lk = lk + np.log(r)
+                if k > 0:
+                    r = 2 * (mu + k) / x + 1 / r
+                ref = bessel.log_kv_impl(order.double(),
+                                         torch.as_tensor(x)).numpy()
+                np.testing.assert_allclose(lk, ref, rtol=1e-12, atol=0)
+                if e == 0:
+                    ref1 = bessel.log_kv_impl(order.double() + 1.0,
+                                              torch.as_tensor(x)).numpy()
+                    np.testing.assert_allclose(r, np.exp(ref1 - ref),
+                                               rtol=1e-10)
+            assert w[-4] == float(nut)
+            assert w[-1] == 1.0 / (2.0 * float(torch.tensor(h, dtype=dtype)))
+    # nu + h crosses the half-integer in float32 (k 1 -> 2), not in float64
+    w32 = ms.general_params(1.4995, torch.float32)
+    w64 = ms.general_params(1.4995, torch.float64)
+    assert [w32[e * ms.KV_WORDS + 7] for e in range(3)] == [1.0, 2.0, 1.0]
+    assert [w64[e * ms.KV_WORDS + 7] for e in range(3)] == [1.0, 1.0, 1.0]
+
+
+def test_general_wrapper_takes_plain_version_on_cpu():
+    """At a general smoothness ``matern_solve_e0`` runs its plain version
+    on CPU tensors (no launch counted) and its backward gives d/dnu."""
+    _, _, args, cp = _general_inputs(0.8, n=80, m=5)
+    before = (ms.GENERAL_FWD.launches, ms.GENERAL_BWD.launches,
+              matern_solve_e0.launches)
+    c = torch.tensor(cp, requires_grad=True)
+    x = matern_solve_e0(*args, c)
+    torch.testing.assert_close(x, matern_solve_e0_plain(*args, c.detach()),
+                               rtol=0, atol=0)
+    (x ** 2).sum().backward()
+    assert c.grad[2] != 0
+    assert (ms.GENERAL_FWD.launches, ms.GENERAL_BWD.launches,
+            matern_solve_e0.launches) == before
+
+
+def test_general_matern_routes_by_f():
+    """The built-in Matern at a general smoothness reaches H1's plain
+    version and neither ``build_cov_packed`` nor H8 up to
+    ``max_neighbors``; above it (a CPU run asks the same bound) it takes
+    the packed path; esqe always does."""
+    from gpvecchia_torch.kernels import u_entries as UE
+    from gpvecchia_torch.kernels.covariance import make_kernel_fn
+    calls = {}
+
+    def spy(mod, name):
+        fn = getattr(mod, name)
+
+        def wrapped(*a, **k):
+            calls[name] = calls.get(name, 0) + 1
+            return fn(*a, **k)
+        return wrapped
+
+    plan, nug_point, args, cp = _general_inputs(0.8, n=80, m=5)
+    geo = (torch.as_tensor(plan.locs), torch.as_tensor(plan.NN),
+           torch.as_tensor(plan.valid), torch.as_tensor(plan.cond))
+    nug = torch.as_tensor(nug_point)
+    with pytest.MonkeyPatch.context() as mp:
+        for mod, name in ((ms, "matern_solve_e0_plain"), (UE, "solve_e0"),
+                          (UE, "build_cov_packed")):
+            mp.setattr(mod, name, spy(mod, name))
+        UE.u_entries(*geo, nug, torch.as_tensor(cp))
+        assert calls == {"matern_solve_e0_plain": 1}
+        calls.clear()
+        UE.u_entries(*geo, nug, torch.tensor([0.8, 0.3, 0.4, 0.2]),
+                     make_kernel_fn("esqe"))
+        assert calls.get("matern_solve_e0_plain") is None
+        assert calls["solve_e0"] > 0 and calls["build_cov_packed"] > 0
+        calls.clear()
+        mp.setattr(UE, "max_neighbors", lambda d, dtype: plan.NN.shape[1] - 1)
+        col, _ = UE.u_entries(*geo, nug, torch.as_tensor(cp))
+        assert calls.get("matern_solve_e0_plain") is None
+        assert calls["solve_e0"] > 0 and calls["build_cov_packed"] > 0
+    mp_col, _ = UE.u_entries(*geo, nug, torch.as_tensor(cp))
+    torch.testing.assert_close(col, mp_col, rtol=0,
+                               atol=1e-11 * mp_col.abs().max().item())
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_general_f_above_the_bound_keeps_the_packed_path(dtype):
+    """An F that the fused kernels refuse is exactly one that the packed
+    path still takes (H8's own bound is larger): a general smoothness at
+    F = max_neighbors + 1 runs there as it always did."""
+    F = max_neighbors(2, dtype) + 1
+    assert F <= ms._max_f(0, dtype, ms._FWD_VECS)
