@@ -6,13 +6,15 @@
     python3 chip_smoke.py --profile            # + torch.profiler breakdowns
     python3 chip_smoke.py --only-h4            # H4 alone; no final "ok" line
     python3 chip_smoke.py --only-h15           # H1, H5 alone; no "ok" line
+    python3 chip_smoke.py --only-assembly      # H2, H3 alone; no "ok" line
 
 Builds the host library and the CUDA kernels from this checkout, then
 
 1. kernel phase: runs each CUDA kernel on the card at the shapes of this
    run's plan, in float64 and float32, against its plain PyTorch version on
    the same inputs, and times both with CUDA events: the forward kernels
-   H1 matern_solve_e0, H2 leaf_assemble, H3 extend_add, H8 solve_e0 (on
+   H1 matern_solve_e0, H2 leaf_assemble (at the plan's leaf; two launches
+   with the same bits), H8 solve_e0 (on
    the packed smoothness-0.8 covariances of the first row chunk), and the
    backward kernels H5 matern_solve_e0_bwd (against torch autograd through
    H1's plain version; both at F = 11, 21, 41, then at their edge shapes on
@@ -27,8 +29,15 @@ Builds the host library and the CUDA kernels from this checkout, then
    ``gen_edge_phase``), solve_e0_bwd (K2 one to one,
    H8's backward: at H8's shape and on random SPD matrices), H6
    extend_add_bwd (writing, as on the main path, through a strided view
-   into child fronts' Schur blocks) and H7 leaf_assemble_bwd, with H3's and
-   H6's bounds summed over the plan's internal levels.  Then H4
+   into child fronts' Schur blocks) and H7 leaf_assemble_bwd.  Then H2 and
+   H3 at their edge shapes (``H2_EDGE_SHAPES``, ``H3_EDGE_SHAPES``: H3 bit
+   for bit its plain version, H2 by the rule below, each launched twice
+   with the same bits, upper triangles and guard values past the batch
+   untouched, ``assembly_edge_phase``) and H3 at every internal level of
+   this run's plan, bit for bit its plain version in both dtypes, with a
+   row a level (ms, bound, share of bound) and the sums over the levels
+   (``eadd_level_phase``; the widest level's row is H3's in the
+   ``kernels`` line).  Then H4
    front_factor, measured here only: the edge shapes of its blocked schedule (``H4_EDGE_SHAPES``, a batch whose
    middle front is not SPD, NaN in the strict upper triangle of the
    inputs), and H4 at every level of this run's multifrontal plan, each
@@ -89,7 +98,9 @@ n=1e6, m=40 (no spec, no plan, no other phase) and exits without the final
 device line, so that such a run is never taken for a pass.  ``--only-h15``
 is the same for H1 and H5: their edge shapes, then both at H15_FS on
 H15_N Z-ordered points (``morton_points``), with the shared-memory route's
-time beside the register route's.
+time beside the register route's.  ``--only-assembly`` is the same for H2
+and H3: their edge shapes, then the spec and plan of --n and --m, H2 and
+H7 at its leaf and H3 at each of its internal levels.
 
 Every phase raises on failure (exit code != 0).  The last line of standard
 output is one JSON object naming the device.  Without a CUDA device, or
@@ -1104,94 +1115,18 @@ def kernel_phase(spec, mf, seed, dev):
            lambda dt: cost_k2(dt, n2, F), main=False)
     del k2_in
 
-    # ---- H2 and H7 at the leaf's shape ----
-    leaf = mf.levels[-1]
-    N, EL, K = leaf.elem_pos.shape
-    P, B = leaf.npiv, leaf.nbord
-    F1 = P + B + 1
-    epos = leaf.elem_pos
-    u = np.where(epos >= 0, rng.normal(size=epos.shape), 0.0)
-    re = np.where(leaf.elem_pt >= 0, rng.normal(size=leaf.elem_pt.shape), 0.0)
-    dv = np.zeros((N, F1))
-    dv[:, :P] = np.where(leaf.piv_ids >= 0, 1.0 / NUGGET, 1.0)
-    rv = np.zeros((N, F1))
-    rv[:, :F1 - 1] = rng.normal(size=(N, F1 - 1))
+    checks.update(leaf_phase(mf, seed, dev))
 
-    def mk_leaf(dt):
-        return (torch.as_tensor(u, dtype=dt, device=dev),
-                torch.as_tensor(epos, device=dev),
-                torch.as_tensor(re, dtype=dt, device=dev),
-                torch.as_tensor(dv, dtype=dt, device=dev),
-                torch.as_tensor(rv, dtype=dt, device=dev))
-
-    label = f"leaf N={N} EL={EL} K={K} F1={F1}"
-    # each real element adds the lower triangle of its (k+1)-vector's
-    # outer product (k valid slots and the rhs), one FMA (2 operations) an
-    # entry
-    k_e = (epos >= 0).sum(-1)[leaf.elem_pt >= 0]
-    leaf_ops = float(((k_e + 1) * (k_e + 2)).sum())
-    leaf_in = epos.size * 4 + (u.size + re.size + dv.size + rv.size)
-
-    def cost_h2(dt):
-        return (leaf_in - epos.size) * _size(dt) + epos.size * 4 \
-            + N * F1 * F1 * _size(dt), leaf_ops
-
-    h2 = checks["leaf_assemble"] = KernelCheck("leaf_assemble")
-    h2.run(label, mk_leaf, FR.leaf_assemble, FR.leaf_assemble_plain,
-           torch.tril, cost_h2)
-
-    h7 = checks["leaf_assemble_bwd"] = KernelCheck("leaf_assemble_bwd")
-    dfront = {torch.float64: _sym_randn((N, F1, F1), seed + 7, dev)}
-    dfront[torch.float32] = dfront[torch.float64].float()
-    def cost_h7(dt):
-        # dfront, u, epos, rhs_elem in; du, d rhs_elem, d dvec, d rvec out
-        sz = _size(dt)
-        return (N * F1 * F1 * sz + epos.size * 4 + 2 * (u.size + re.size) * sz
-                + 2 * N * F1 * sz), leaf_ops
-
-    h7.run(label, lambda dt: (dfront[dt],) + mk_leaf(dt)[:3],
-           FR.leaf_assemble_bwd, FR.leaf_assemble_bwd_plain, lambda r: r,
-           cost_h7)
-    del dfront
-
-    # ---- H3 and H6 at the top internal level with the widest front (H4
-    # has a phase of its own, at every level) ----
-    d_top = max(range(mf.depth), key=lambda d: mf.levels[d].front,
-                default=None)
+    # ---- H6 at the top internal level with the widest front (H3 and H4
+    # have phases of their own, at every level) ----
+    d_top = _widest_level(mf)
     if d_top is not None:
         lv = mf.levels[d_top]
         N, P, B = lv.piv_ids.shape[0], lv.npiv, lv.nbord
         F1 = P + B + 1
         Bc1 = mf.levels[d_top + 1].nbord + 1
-        ext = np.full((N, 2, F1), -1, np.int32)
-        ext[:, :, :F1 - 1] = lv.ext
-        ext[:, :, F1 - 1] = Bc1 - 1
-        ch = rng.normal(size=(N, 2, Bc1, Bc1))
-        ch = ch + np.swapaxes(ch, 2, 3)
-        dv = np.zeros((N, F1))
-        dv[:, :P] = 1.0
-        rv = np.zeros((N, F1))
-        rv[:, :F1 - 1] = rng.normal(size=(N, F1 - 1))
-
-        def mk_top(dt):
-            return (torch.as_tensor(ch, dtype=dt, device=dev),
-                    torch.as_tensor(ext, device=dev),
-                    torch.as_tensor(dv, dtype=dt, device=dev),
-                    torch.as_tensor(rv, dtype=dt, device=dev))
-
+        ext = _ext_aug(lv, F1, Bc1)
         label = f"level {d_top} N={N} Bc1={Bc1} F1={F1}"
-        # each child's update adds its lower triangle into the front
-        b = (ext >= 0).sum(-1)
-        eadd_ops = float((b * (b + 1) / 2).sum())
-
-        def cost_h3(dt):
-            sz = _size(dt)
-            return (ch.size * sz + ext.size * 4 + 2 * N * F1 * sz
-                    + N * F1 * F1 * sz), eadd_ops
-
-        h3 = checks["extend_add"] = KernelCheck("extend_add")
-        h3.run(label, mk_top, FR.extend_add, FR.extend_add_plain,
-               torch.tril, cost_h3)
         # H6 writes, as on the main path, into the child fronts' [Pc:, Pc:]
         # blocks through a strided view of a (2N, F1c, F1c) buffer; the
         # rest of the buffer must stay 0
@@ -1226,44 +1161,279 @@ def kernel_phase(spec, mf, seed, dev):
             rest[:, Pc:, Pc:] = 0.0
             return r[:3] + (rest.abs().amax(),)
 
-        def cost_h6(dt):
-            # a gather: dfront and ext in; the children's blocks, d dvec and
-            # d rvec out
-            sz = _size(dt)
-            return (N * F1 * F1 * sz + ext.size * 4 + 2 * N * Bc1 * Bc1 * sz
-                    + 2 * N * F1 * sz), 0.0
-
         h6.run(label + f" F1c={F1c}", mk_h6, h6_kernel, h6_plain, h6_out,
-               cost_h6, mutates=True)
+               lambda dt: cost_h6(dt, N, F1, Bc1), mutates=True)
         del dfront
-    return checks, eadd_bounds(mf)
+    return checks
 
 
-def eadd_bounds(mf):
-    """H3's and H6's bounds summed over the plan's internal levels (bytes,
-    as ``cost_h3`` and ``cost_h6`` count them at a level: the children's
-    Schur blocks, ext, the border vectors and the parent fronts, full
-    squares), float32 and float64."""
-    out = {}
-    for dt in (torch.float32, torch.float64):
+def cost_h2(dt, N, F1, epos, n_in, ops):
+    """(bytes, operations) of H2: epos and the ``n_in`` values of u,
+    rhs_elem, dvec and rvec read once, each front's lower triangle (all H2
+    writes) written once; ``ops`` operations."""
+    sz = _size(dt)
+    return epos.size * 4 + n_in * sz + N * F1 * (F1 + 1) // 2 * sz, ops
+
+
+def cost_h3(dt, N, F1, ext):
+    """(bytes, operations) of H3 on N fronts with the augmented map ``ext``
+    (N, 2, F1): ext, dvec and rvec read once, of each child the lower
+    triangle of the b x b entries its b valid positions gather (its lower
+    triangle, since ext is monotone) read once, and each front's lower
+    triangle written once; one addition a gathered entry."""
+    sz = _size(dt)
+    b = (ext >= 0).sum(-1)
+    gathered = float((b * (b + 1) // 2).sum())
+    return (ext.size * 4 + 2 * N * F1 * sz + gathered * sz
+            + N * F1 * (F1 + 1) // 2 * sz), gathered
+
+
+def cost_h6(dt, N, F1, Bc1):
+    """(bytes, operations) of H6: a gather that reads the full front
+    cotangent and ext and adds into the children's full Bc1 x Bc1 blocks
+    (``out +=``, both triangles), writing d dvec and d rvec."""
+    sz = _size(dt)
+    return (N * F1 * F1 * sz + 2 * N * F1 * 4 + 2 * N * Bc1 * Bc1 * sz
+            + 2 * N * F1 * sz), 0.0
+
+
+def _ext_aug(lv, F1, Bc1):
+    """A level's (N, 2, F1) int32 ext map with the augmented entry, as
+    ``multifrontal.mf_device_arrays`` builds it."""
+    ext = np.full((lv.piv_ids.shape[0], 2, F1), -1, np.int32)
+    ext[:, :, :F1 - 1] = lv.ext
+    ext[:, :, F1 - 1] = Bc1 - 1
+    return ext
+
+
+def _widest_level(mf):
+    """The internal level with the widest front (None for a one-level
+    plan): the main shape of H3 and H6 in the ``kernels`` line."""
+    return max(range(mf.depth), key=lambda d: mf.levels[d].front,
+               default=None)
+
+
+def _exact_rule(part, k, p, r, dt):
+    """KernelCheck's rule for H3: the kernel equals its plain version in
+    the same dtype bit for bit (an extend-add has no products, and both
+    add child 0, child 1, D and the RHS row in that order)."""
+    same = torch.equal(k, p)
+    err = (k - p).abs().max().item()
+    held = 0.0 if same else (err or float("inf"))
+    return err, held, 0.0, r.abs().max().item(), " bit for bit"
+
+
+def _same_twice(name, launch):
+    """Two launches on the same inputs give the same bits."""
+    a, b = launch(), launch()
+    torch.cuda.synchronize()
+    if not torch.equal(a, b):
+        raise AssertionError(f"{name}: two launches on the same inputs "
+                             f"differ")
+
+
+def leaf_phase(mf, seed, dev):
+    """H2 and H7 at the leaf's shape of the plan: H2 by ``_rule``, its two
+    launches bit for bit; returns their KernelChecks."""
+    from gpvecchia_torch.linalg import frontal as FR
+    rng = np.random.default_rng(seed)
+    leaf = mf.levels[-1]
+    N, EL, K = leaf.elem_pos.shape
+    P, B = leaf.npiv, leaf.nbord
+    F1 = P + B + 1
+    epos = leaf.elem_pos
+    u = np.where(epos >= 0, rng.normal(size=epos.shape), 0.0)
+    re = np.where(leaf.elem_pt >= 0, rng.normal(size=leaf.elem_pt.shape), 0.0)
+    dv = np.zeros((N, F1))
+    dv[:, :P] = np.where(leaf.piv_ids >= 0, 1.0 / NUGGET, 1.0)
+    rv = np.zeros((N, F1))
+    rv[:, :F1 - 1] = rng.normal(size=(N, F1 - 1))
+
+    def mk_leaf(dt):
+        return (torch.as_tensor(u, dtype=dt, device=dev),
+                torch.as_tensor(epos, device=dev),
+                torch.as_tensor(re, dtype=dt, device=dev),
+                torch.as_tensor(dv, dtype=dt, device=dev),
+                torch.as_tensor(rv, dtype=dt, device=dev))
+
+    label = f"leaf N={N} EL={EL} K={K} F1={F1}"
+    # each real element adds the lower triangle of its (k+1)-vector's
+    # outer product (k valid slots and the rhs), one FMA (2 operations) an
+    # entry
+    k_e = (epos >= 0).sum(-1)[leaf.elem_pt >= 0]
+    leaf_ops = float(((k_e + 1) * (k_e + 2)).sum())
+    n_in = u.size + re.size + dv.size + rv.size
+    h2 = KernelCheck("leaf_assemble")
+    h2.run(label, mk_leaf, FR.leaf_assemble, FR.leaf_assemble_plain,
+           torch.tril, lambda dt: cost_h2(dt, N, F1, epos, n_in, leaf_ops))
+    for dt in (torch.float64, torch.float32):
+        args = mk_leaf(dt)
+        _same_twice(f"leaf_assemble {label} {dt}",
+                    lambda: torch.tril(FR.leaf_assemble(*args)))
+    del args
+
+    h7 = KernelCheck("leaf_assemble_bwd")
+    dfront = {torch.float64: _sym_randn((N, F1, F1), seed + 7, dev)}
+    dfront[torch.float32] = dfront[torch.float64].float()
+
+    def cost_h7(dt):
+        # dfront, u, epos, rhs_elem in; du, d rhs_elem, d dvec, d rvec out
         sz = _size(dt)
-        h3 = h6 = 0.0
-        for d in range(mf.depth):
-            lv = mf.levels[d]
-            N, F1 = lv.piv_ids.shape[0], lv.npiv + lv.nbord + 1
-            Bc1 = mf.levels[d + 1].nbord + 1
-            b = (lv.ext >= 0).sum(-1)
-            ops = float((b * (b + 1) / 2).sum())
-            kids, ext = 2 * N * Bc1 * Bc1 * sz, 2 * N * F1 * 4
-            h3 += _bound(kids + ext + 2 * N * F1 * sz + N * F1 * F1 * sz,
-                         ops, dt)[0]
-            h6 += _bound(N * F1 * F1 * sz + ext + kids + 2 * N * F1 * sz,
-                         0.0, dt)[0]
+        return (N * F1 * F1 * sz + epos.size * 4 + 2 * (u.size + re.size) * sz
+                + 2 * N * F1 * sz), leaf_ops
+
+    h7.run(label, lambda dt: (dfront[dt],) + mk_leaf(dt)[:3],
+           FR.leaf_assemble_bwd, FR.leaf_assemble_bwd_plain, lambda r: r,
+           cost_h7)
+    return {"leaf_assemble": h2, "leaf_assemble_bwd": h7}
+
+
+def eadd_level_phase(mf, dev, seed):
+    """H3 at every internal level of the plan on the plan's own ext maps
+    and symmetric normal child blocks, read, as on the main path, through a
+    strided view of (2N, F1c, F1c) child fronts: the kernel equals its
+    plain version bit for bit in float64 and float32, two launches give the
+    same bits; one row a level and dtype (ms, bound, the bound's share of
+    the time) and the sums over the levels, with H6's bound summed alike
+    (H6 is timed at the widest level only).  Returns (rows, sums, the
+    KernelCheck, whose main shape is the widest level)."""
+    from gpvecchia_torch.linalg import frontal as FR
+    chk = KernelCheck("extend_add")
+    rows = []
+    d_main = _widest_level(mf)
+    h6_bound = {torch.float32: 0.0, torch.float64: 0.0}
+    for d in range(mf.depth):
+        lv, lc = mf.levels[d], mf.levels[d + 1]
+        N, P = lv.piv_ids.shape[0], lv.npiv
+        F1 = P + lv.nbord + 1
+        Pc, Bc1 = lc.npiv, lc.nbord + 1
+        F1c = Pc + Bc1
+        ext = _ext_aug(lv, F1, Bc1)
+        ext_t = torch.as_tensor(ext, device=dev)
+        g = torch.Generator(device=dev).manual_seed(seed + d)
+        kids = {torch.float64: torch.zeros(2 * N, F1c, F1c,
+                                           dtype=torch.float64, device=dev)}
+        blk = torch.randn(2 * N, Bc1, Bc1, generator=g, dtype=torch.float64,
+                          device=dev)
+        kids[torch.float64][:, Pc:, Pc:] = blk + blk.mT
+        del blk
+        kids[torch.float32] = kids[torch.float64].float()
+        vec = {}
+        for dt in (torch.float64, torch.float32):
+            dv = torch.zeros(N, F1, dtype=dt, device=dev)
+            dv[:, :P] = 1.0 / NUGGET
+            rv = torch.randn(N, F1, generator=g, dtype=torch.float64,
+                             device=dev).to(dt)
+            rv[:, F1 - 1] = 0.0
+            vec[dt] = (dv, rv)
+
+        def mk(dt):
+            return ((kids[dt][:, Pc:, Pc:].unflatten(0, (N, 2)), ext_t)
+                    + vec[dt])
+
+        chk.run(f"level {d} N={N} Bc1={Bc1} F1={F1}", mk, FR.extend_add,
+                FR.extend_add_plain, torch.tril,
+                lambda dt: cost_h3(dt, N, F1, ext), main=d == d_main,
+                rule=_exact_rule)
+        for dt in (torch.float64, torch.float32):
+            args = mk(dt)
+            _same_twice(f"extend_add level {d} {dt}",
+                        lambda: torch.tril(FR.extend_add(*args)))
+            h6_bound[dt] += _bound(*cost_h6(dt, N, F1, Bc1), dt)[0]
+        del kids, vec, args
+        torch.cuda.empty_cache()
+        for row in chk.rows[-2:]:
+            rows.append(dict(level=d, N=N, F1=F1, Bc1=Bc1, dtype=row["dtype"],
+                             ms=row["ms"], plain_ms=row["plain_ms"],
+                             bound_ms=row["bound_ms"],
+                             share=row["bound_ms"] / row["ms"]))
+    sums = {}
+    for dt in (torch.float32, torch.float64):
         name = str(dt).split(".")[-1]
-        out[name] = dict(extend_add=h3, extend_add_bwd=h6, levels=mf.depth)
-        log(f"  extend_add / extend_add_bwd bound summed over the "
-            f"{mf.depth} internal levels, {name}: {h3:.3f} / {h6:.3f} ms")
-    return out
+        rs = [r for r in rows if r["dtype"] == name]
+        if not rs:                      # a one-level plan has no H3
+            continue
+        log(f"  H3 by level, {name}: level N F1 Bc1 | kernel ms | plain ms | "
+            f"bound ms | share of bound")
+        for r in rs:
+            log(f"    {r['level']:2d} {r['N']:5d} {r['F1']:5d} {r['Bc1']:5d} | "
+                f"{r['ms']:8.3f} | {r['plain_ms']:8.3f} | {r['bound_ms']:7.3f}"
+                f" | {100 * r['share']:5.1f} %")
+        ms, bound = sum(r["ms"] for r in rs), sum(r["bound_ms"] for r in rs)
+        sums[name] = dict(levels=len(rs), extend_add_ms=ms,
+                          extend_add_bound_ms=bound,
+                          extend_add_bwd_bound_ms=h6_bound[dt])
+        log(f"  H3 summed over the {len(rs)} internal levels, {name}: kernel "
+            f"{ms:.3f} ms, bound {bound:.3f} ms ({100 * bound / ms:.1f} %); "
+            f"H6's bound summed alike {h6_bound[dt]:.3f} ms")
+    return rows, sums, chk
+
+
+def assembly_edge_phase(dev, seed, guard=4096):
+    """H3 and H2 at their edge shapes (``H3_EDGE_SHAPES``,
+    ``H2_EDGE_SHAPES``), float64 and float32, each launched twice into a
+    buffer whose upper triangles and ``guard`` values past the last front
+    hold 7.0: the two buffers equal bit for bit, those values stay 7.0,
+    and the lower triangles equal the plain version's bit for bit (H3) or
+    hold ``_rule`` against it (H2)."""
+    from gpvecchia_torch.linalg import frontal as FR
+    worst = {torch.float64: 0.0, torch.float32: 0.0}
+
+    def launched(name, launch, dt, N, F1):
+        outs = []
+        for _ in range(2):
+            buf = torch.full((N * F1 * F1 + guard,), 7.0, dtype=dt, device=dev)
+            launch(buf[:N * F1 * F1].view(N, F1, F1))
+            outs.append(buf)
+        torch.cuda.synchronize()
+        front = outs[0][:N * F1 * F1].view(N, F1, F1)
+        up = torch.ones(F1, F1, dtype=torch.bool, device=dev).triu(1)
+        if not torch.equal(outs[0], outs[1]):
+            raise AssertionError(f"{name} {dt}: two launches differ")
+        if not (bool((front[:, up] == 7.0).all())
+                and bool((outs[0][N * F1 * F1:] == 7.0).all())):
+            raise AssertionError(f"{name} {dt}: wrote outside the lower "
+                                 f"triangles")
+        return torch.tril(front)
+
+    for idx, shape in enumerate(FR.H3_EDGE_SHAPES):
+        N, F1 = shape[:2]
+        cpu = FR.h3_edge_inputs(*shape, seed=seed + idx)
+        for dt in (torch.float64, torch.float32):
+            upd, ext, dv, rv = (t.to(dev, dt) if t.is_floating_point()
+                                else t.to(dev) for t in cpu)
+            name = f"extend_add {shape}"
+            k = launched(name, lambda f: FR._eadd_launch(upd, ext, dv, rv, f),
+                         dt, N, F1)
+            p = torch.tril(FR.extend_add_plain(upd, ext, dv, rv))
+            if not torch.equal(k, p):
+                raise AssertionError(f"{name} {dt}: not bit for bit its plain "
+                                     f"version ({(k - p).abs().max():.3e})")
+    for idx, shape in enumerate(FR.H2_EDGE_SHAPES):
+        N, F1 = shape[:2]
+        cpu = FR.h2_edge_inputs(*shape, seed=seed + idx)
+        ref = torch.tril(FR.leaf_assemble_plain(
+            *(t.to(dev) for t in cpu))).double()
+        for dt in (torch.float64, torch.float32):
+            u, epos, re, dv, rv = (t.to(dev, dt) if t.is_floating_point()
+                                   else t.to(dev) for t in cpu)
+            name = f"leaf_assemble {shape}"
+            k = launched(name,
+                         lambda f: FR._leaf_launch(u, epos, re, dv, rv, f),
+                         dt, N, F1)
+            p = torch.tril(FR.leaf_assemble_plain(u, epos, re, dv, rv))
+            scale = ref.abs().max().item()
+            err, held, tol = _rule(k.double(), p.double(), ref, scale, dt)
+            if not (held <= tol and np.isfinite(err)):
+                raise AssertionError(f"{name} {dt}: kernel disagrees with its "
+                                     f"plain version: {held:.3e} > {tol:.3e}")
+            worst[dt] = max(worst[dt], held / tol)
+    log(f"  extend_add edge shapes: {len(FR.H3_EDGE_SHAPES)} shapes bit for "
+        f"bit the plain version in f64 and f32; leaf_assemble edge shapes: "
+        f"{len(FR.H2_EDGE_SHAPES)} shapes, largest held/tol f64 "
+        f"{worst[torch.float64]:.3f}, f32 {worst[torch.float32]:.3f}; both "
+        f"launched twice with the same bits, upper triangles and "
+        f"{guard} guard values untouched")
 
 
 # ``--only-h15``: H1 and H5 at these F on H15_N Z-ordered points (F = 72
@@ -2030,6 +2200,12 @@ def main():
                     help="a tool for work on H4: build, H4's edge shapes and "
                          "H4 at the 14 level shapes of n=1e6, m=40, and "
                          "nothing else; prints no final device line")
+    ap.add_argument("--only-assembly", action="store_true",
+                    help="a tool for work on H2 and H3: build, their edge "
+                         "shapes, the spec and plan of --n and --m, H2 and "
+                         "H7 at its leaf and H3 at each of its internal "
+                         "levels, and nothing else; prints no final device "
+                         "line")
     ap.add_argument("--only-h15", action="store_true",
                     help="a tool for work on H1 and H5: build, their edge "
                          "shapes and both kernels at F = 11, 21, 41 and 72 "
@@ -2107,9 +2283,21 @@ def main():
     log(f"host: spec {spec_s:.2f} s, plan {plan_s:.2f} s, MF depth "
         f"{mf.depth}, leaf {mf.levels[-1].elem_pos.shape}, root P "
         f"{mf.levels[0].npiv}")
+    if args.only_assembly:
+        log("H2 and H3 alone (not a pass of this script):")
+        assembly_edge_phase(dev, args.seed)
+        leaf = leaf_phase(mf, args.seed, dev)["leaf_assemble"]
+        rows, sums, _ = eadd_level_phase(mf, dev, args.seed)
+        print(json.dumps({"leaf_assemble": leaf.rows, "eadd_levels": {
+            "sums": sums, "rows": rows}, "smi": smi}))
+        return
 
     log("kernel phase (kernel vs plain version on the card):")
-    checks, eadd = kernel_phase(spec, mf, args.seed, dev)
+    checks = kernel_phase(spec, mf, args.seed, dev)
+    assembly_edge_phase(dev, args.seed)
+    eadd_rows, eadd_sums, h3 = eadd_level_phase(mf, dev, args.seed)
+    if h3.rows:
+        checks["extend_add"] = h3
     h4_edge_phase(dev, args.seed)
     h4_levels, checks["front_factor"] = h4_level_phase(
         _level_shapes(mf), dev, args.seed)
@@ -2267,7 +2455,8 @@ def main():
                       "general_peak_bytes": gen_peak,
                       "grad_launches": grad_launches,
                       "general_launches": gen_launches,
-                      "esqe_launches": esqe_launches, "eadd_bounds": eadd,
+                      "esqe_launches": esqe_launches,
+                      "eadd_levels": {"sums": eadd_sums, "rows": eadd_rows},
                       "h4_levels": h4_levels, "smi": smi},
                      default=float))
     print(json.dumps({"kernels": kernels}))

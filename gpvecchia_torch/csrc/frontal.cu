@@ -8,13 +8,38 @@
 // linalg/pallas_level.py `_leaf_kernel` (pallas_call at :594, entry
 // `fused_leaf`): front = sum_e u_e u_e^T over the leaf's elements, with the
 // element's RHS weight at position F1-1, plus D on the pivot diagonal and
-// rhs_vert in row and column F1-1.  Bound on an H100 by read-modify-writes:
-// each element adds (K+1)^2 products to scattered front entries (1.8e9 at
-// n=1e6, m=40).  Design: one block per front walks the elements in order;
-// inside one element every (k, l) pair hits a distinct entry, so threads
-// over the pairs update without atomics and a barrier separates elements.
-// The sum order is fixed, so the result does not change from run to run.
-// Only the lower triangle is written (the factor reads nothing else).
+// rhs_vert in row and column F1-1.  Each element adds the lower triangle of
+// its (K+1)^2 products to scattered front entries; a front's lower triangle (330^2 / 2 values at the leaf, 218 KB in
+// float32) is larger than an SM's L1, so read-modify-writes of device memory
+// would reach L2 or HBM each.  Design: the triangle is cut into R row bands
+// of about equal area (R from F1 and the dtype, each band about
+// LA_BAND_BYTES: 4 bands and 3 blocks an SM at the leaf in float32), and one
+// block per (front, band) accumulates its band in shared memory.  The
+// elements come in chunks of up to 32: a thread loads its slots of the next
+// chunk (positions and values, the RHS weight as slot K at position F1-1)
+// into registers while the block works on the current one.  A chunk's slots
+// that fall in the band are listed row by row: each row gets a 32-bit mask
+// of the chunk's elements that touch it (an element touches a row once),
+// the rows' counts are summed in order, and a slot's place is its row's
+// start plus the number of earlier elements in the row's mask, so each
+// row's entries are in element order.  Warp w walks the rows that start in
+// the w-th eighth of the list, in two groups of 16 lanes with a contiguous
+// run of rows each; for an entry (element e, row p) a group adds u_p u_l to
+// [p][pos_l] for the element's slots l with pos_l <= p, all loads of an
+// entry before its stores (an element's positions are distinct).  Rows are
+// disjoint between groups and entries of one row are added in element
+// order, so every entry is summed in a fixed order without atomics (the
+// masks are built with atomicOr, whose result is the same in any order):
+// two launches give the same bits.  The band is then written once, a row a
+// warp, coalesced, with D on the diagonal and rhs_vert in row F1-1 added in
+// the same store.  No device memory is touched but the inputs, read once a
+// band, and the band's lower triangle, written once.  What is left (NVIDIA
+// H100 80GB HBM3, 700 W; n=1e6, m=40, float32): storing the lower
+// triangles of square fronts leaves the rest of each DRAM page unwritten
+// and runs at 1.27 TB/s even in a kernel that only stores (1.41 ms for the
+// leaf's, scripts/torch_triangle_stores.py), which the bands' zeroing and
+// stores take; the walk, bound by shared-memory accesses at scattered
+// addresses, takes about as long again.
 //
 // H3 extend_add replaces the assembly halves of `_level_kernel` (:344,
 // `fused_level`) and `_afront_kernel` (:756, `assemble_fronts`), and the
@@ -22,8 +47,25 @@
 // front[i][j] = sum_s upd_s[ext_s[i]][ext_s[j]] + D + the RHS row/column,
 // reading each symmetric child block through its lower triangle and
 // writing the front's lower triangle.  A pure gather, bound by device-memory
-// bandwidth; one thread per output entry, coalesced writes, no TPU panel
-// plans.
+// bandwidth: the parent's lower triangles written once and the children's
+// read once (11.2 GB over the 13 internal levels at n=1e6, m=40, float32,
+// 7.35 GB of it the parents').  Lower-triangle rows of square fronts store
+// at 1.14-1.57 TB/s on an NVIDIA H100 80GB HBM3 at 700 W (the rest of each
+// DRAM page is not written; scripts/torch_triangle_stores.py), so the
+// parents' triangles alone take about 5.8 ms.
+// Design: one block per 64 x 64 tile of one front's lower triangle (grid:
+// lower-triangle tiles x fronts, as H4's symmetric update); the tile's rows'
+// child positions are staged in shared memory once and a lane keeps its
+// two columns' in registers; a warp takes 8 rows of the tile and issues all
+// its child loads before any store, then writes contiguous 64-wide row
+// segments.  ext is monotone on its valid positions, so below the diagonal
+// the child row is the parent row's: a warp reads along one child row.  A
+// child absent from a row skips that row's reads (warp-uniform), one absent
+// from a column skips the lane's.  Index arithmetic inside a front and
+// inside a child block is 32-bit (the wrapper checks both fit).  Each entry
+// is summed as the plain version sums it: child 0, child 1, D, then the RHS
+// row, with no products, so the result equals the plain version's bit for
+// bit.
 //
 // H4 front_factor replaces linalg/pallas_frontal.py `_factor_kernel`
 // (:180, `factor_fronts`), the factor and Schur halves of the leaf and level
@@ -90,6 +132,7 @@
 // and is bound by those reads.
 
 #include <cuda_runtime.h>
+#include <math.h>
 #include <stdint.h>
 
 namespace {
@@ -107,72 +150,286 @@ constexpr int SY_SMALL = 192;    // row extent below which it takes 64-tiles
 // thread, no spills), else what the registers allow
 #define SY_BLOCKS(T, BT) ((sizeof(T) == 4 && (BT) == 128) ? 2 : 1)
 static_assert(UPD_THREADS % 32 == 0, "whole warps per update block");
+constexpr int LA_THREADS = 256;  // leaf assembly: 8 warps a band
+constexpr int LA_WARPS = LA_THREADS / 32;
+constexpr int LA_BAND_BYTES = 64 * 1024;   // a band's accumulator about
+constexpr int LA_STAGE_BYTES = 24 * 1024;  // a chunk's slots and lists about
+constexpr int LA_CHUNK = 32;     // elements a chunk at most (a row's mask)
+constexpr int LA_PF = 8;         // a thread's slots of a chunk at most
+constexpr int LA_G = 16;         // lanes a group of the walk
+constexpr int LA_GS = 64 / LA_G; // slots a lane of a group keeps in registers
+static_assert(32 % LA_G == 0, "whole groups a warp");
+constexpr int EA_TILE = 64;      // extend-add: 64 x 64 tiles
+constexpr int EA_THREADS = 256;
+static_assert(EA_TILE % (EA_THREADS / 32) == 0 && EA_TILE % 32 == 0,
+              "whole rows a warp and whole columns a lane");
 static_assert(OW % NB == 0, "whole inner panels per outer panel");
 
-template <typename T>
-__global__ void leaf_assemble_kernel(const T* __restrict__ u,
-                                     const int* __restrict__ epos,
-                                     const T* __restrict__ rhs_elem,
-                                     const T* __restrict__ dv,
-                                     const T* __restrict__ rv, int EL, int K,
-                                     int F1, T* __restrict__ front) {
-  const long n = blockIdx.x;
-  T* A = front + n * (long)F1 * F1;
-  for (int i = 0; i < F1; ++i)
-    for (int j = threadIdx.x; j <= i; j += blockDim.x) A[(long)i * F1 + j] = T(0);
-  __syncthreads();
-  const int K1 = K + 1;
-  const int pairs = K1 * K1;
-  const T* un = u + n * EL * K;
-  const int* pn = epos + n * EL * K;
-  const T* rn = rhs_elem + n * EL;
-  for (int e = 0; e < EL; ++e) {
-    for (int t = threadIdx.x; t < pairs; t += blockDim.x) {
-      const int k = t / K1;
-      const int l = t - k * K1;
-      int pk, pl;
-      T uk, ul;
-      if (k < K) { pk = pn[e * K + k]; uk = un[e * K + k]; }
-      else       { pk = F1 - 1;        uk = rn[e]; }
-      if (l < K) { pl = pn[e * K + l]; ul = un[e * K + l]; }
-      else       { pl = F1 - 1;        ul = rn[e]; }
-      if (pl >= 0 && pk >= pl) A[(long)pk * F1 + pl] += uk * ul;
-    }
-    __syncthreads();
-  }
-  for (int i = threadIdx.x; i < F1; i += blockDim.x)
-    A[(long)i * F1 + i] += dv[n * F1 + i];
-  __syncthreads();
-  for (int i = threadIdx.x; i < F1; i += blockDim.x)
-    A[(long)(F1 - 1) * F1 + i] += rv[n * F1 + i];
+// Rows [band_start(b), band_start(b + 1)) form band b of R: the least r
+// with r (r + 1) / 2 * R >= b * F1 (F1 + 1) / 2, so the bands' lower-triangle
+// areas differ by at most one row.  Exact integer arithmetic, the same on
+// the host (which sizes shared memory from it) and on the device.
+__host__ __device__ inline int band_start(int b, int R, int F1) {
+  const long long need = (long long)F1 * (F1 + 1) / 2 * b;
+  int r = (int)sqrt(2.0 * (double)need / R);
+  while (r > 0 && (long long)(r - 1) * r / 2 * R >= need) --r;
+  while ((long long)r * (r + 1) / 2 * R < need) ++r;
+  return r;
 }
 
 template <typename T>
-__global__ void extend_add_kernel(const T* __restrict__ upd, long s_node,
-                                  long s_child, long s_row,
-                                  const int* __restrict__ ext,
-                                  const T* __restrict__ dv,
-                                  const T* __restrict__ rv, int F1,
-                                  T* __restrict__ front) {
-  const long n = blockIdx.y;
-  const long FF = (long)F1 * F1;
-  const long t = (long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (t >= FF) return;
-  const int i = (int)(t / F1);
-  const int j = (int)(t - (long)i * F1);
-  if (j > i) return;                       // lower triangle only
-  const int* en = ext + n * 2 * F1;
-  T acc = T(0);
-  for (int s = 0; s < 2; ++s) {
-    const int a = en[s * F1 + i];
-    const int b = en[s * F1 + j];
-    if (a >= 0 && b >= 0)                  // children's lower triangles
-      acc += upd[n * s_node + s * s_child + (long)(a > b ? a : b) * s_row +
-                 (a > b ? b : a)];
+__global__ void __launch_bounds__(LA_THREADS)
+leaf_assemble_kernel(const T* __restrict__ u, const int* __restrict__ epos,
+                     const T* __restrict__ rhs_elem, const T* __restrict__ dv,
+                     const T* __restrict__ rv, int EL, int K, int F1, int R,
+                     int CH, int acc_len, int rows_max,
+                     T* __restrict__ front) {
+  constexpr unsigned ALL = 0xffffffffu;
+  extern __shared__ __align__(16) unsigned char la_smem[];
+  const int K1 = K + 1;
+  T* acc = reinterpret_cast<T*>(la_smem);           // the band, packed rows
+  T* val = acc + acc_len;                           // the chunk's CH x K1 slots
+  int* pos = reinterpret_cast<int*>(val + CH * K1);
+  int* list = pos + CH * K1;                        // (e << 16 | k), row-major
+  unsigned* mask = reinterpret_cast<unsigned*>(list + CH * K1);
+  int* off = reinterpret_cast<int*>(mask + rows_max);  // rows' list starts
+  const int n = blockIdx.x;
+  const int r0 = band_start(blockIdx.y, R, F1);
+  const int r1 = band_start(blockIdx.y + 1, R, F1);
+  const int rows = r1 - r0;
+  const int base = r0 * (r0 + 1) / 2;
+  const int area = r1 * (r1 + 1) / 2 - base;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  for (int p = tid; p < area; p += LA_THREADS) acc[p] = T(0);
+  for (int r = tid; r < rows; r += LA_THREADS) mask[r] = 0u;
+  const T* un = u + (long)n * EL * K;
+  const int* pn = epos + (long)n * EL * K;
+  const T* rn = rhs_elem + (long)n * EL;
+  // slot t of a chunk is (element, slot) = (t / K1, t % K1); the quotient
+  // by a multiply-high, exact for t K1 < 2^32
+  const unsigned magic = (unsigned)((0x100000000ull + K1 - 1) / K1);
+  int pr[LA_PF];
+  T vr[LA_PF];
+  auto load_chunk = [&](int e0) {   // this thread's slots into registers
+    const int S = (EL - e0 < CH ? EL - e0 : CH) * K1;
+#pragma unroll
+    for (int q = 0; q < LA_PF; ++q) {
+      const int t = tid + LA_THREADS * q;
+      pr[q] = -1;
+      vr[q] = T(0);
+      if (t < S) {
+        const int e = __umulhi((unsigned)t, magic), k = t - e * K1;
+        if (k < K) {
+          pr[q] = pn[(e0 + e) * K + k];
+          vr[q] = un[(e0 + e) * K + k];
+        } else {
+          pr[q] = F1 - 1;
+          vr[q] = rn[e0 + e];
+        }
+      }
+    }
+  };
+  if (EL > 0) load_chunk(0);
+  for (int e0 = 0; e0 < EL; e0 += CH) {
+    const int S = (EL - e0 < CH ? EL - e0 : CH) * K1;
+    __syncthreads();                    // the previous chunk is consumed
+#pragma unroll
+    for (int q = 0; q < LA_PF; ++q) {
+      const int t = tid + LA_THREADS * q;
+      if (t < S) {
+        pos[t] = pr[q];
+        val[t] = vr[q];
+        if (pr[q] >= r0 && pr[q] < r1)
+          atomicOr(&mask[pr[q] - r0], 1u << __umulhi((unsigned)t, magic));
+      }
+    }
+    if (e0 + CH < EL) load_chunk(e0 + CH);
+    __syncthreads();
+    if (warp == 0) {                    // off[r]: entries of the rows before r
+      const int per = (rows + 31) / 32, lo = lane * per;
+      int cnt = 0;
+      for (int r = lo; r < lo + per && r < rows; ++r) cnt += __popc(mask[r]);
+      int incl = cnt;
+#pragma unroll
+      for (int d = 1; d < 32; d <<= 1) {
+        const int o = __shfl_up_sync(ALL, incl, d);
+        if (lane >= d) incl += o;
+      }
+      int run = incl - cnt;
+      for (int r = lo; r < lo + per && r < rows; ++r) {
+        off[r] = run;
+        run += __popc(mask[r]);
+      }
+      if (lane == 31) off[rows] = incl;
+    }
+    __syncthreads();
+    for (int t = tid; t < S; t += LA_THREADS) {
+      const int p = pos[t];
+      if (p >= r0 && p < r1) {
+        const int e = __umulhi((unsigned)t, magic), k = t - e * K1;
+        const int r = p - r0;
+        list[off[r] + __popc(mask[r] & ((1u << e) - 1u))] = (e << 16) | k;
+      }
+    }
+    __syncthreads();
+    for (int r = tid; r < rows; r += LA_THREADS) mask[r] = 0u;
+    // warp w walks the rows that start in [w, w + 1) / LA_WARPS of the
+    // list, and each of its groups a run of them of about equal count: a
+    // row is never split
+    const int total = off[rows];
+    auto row_start = [&](int target) {  // the first row start >= target
+      for (int c = 0; c <= rows; c += 32) {
+        const int o = c + lane <= rows ? off[c + lane] : total;
+        const unsigned m = __ballot_sync(ALL, o >= target);
+        if (m) return __shfl_sync(ALL, o, __ffs(m) - 1);
+      }
+      return total;
+    };
+    const int A = row_start((int)((long)total * warp / LA_WARPS));
+    const int B = warp == LA_WARPS - 1
+                      ? total
+                      : row_start((int)((long)total * (warp + 1) / LA_WARPS));
+    const int grp = lane / LA_G, sub = lane % LA_G;
+    const unsigned gmask = ((1u << LA_G) - 1u) << (LA_G * grp);
+    int gA = A, gB = B;
+    for (int g = 1; g < 32 / LA_G; ++g) {
+      const int c = min(B, row_start(A + (int)((long)(B - A) * g / (32 / LA_G))));
+      if (grp == g) gA = c;
+      if (grp == g - 1) gB = c;
+    }
+    for (int idx = gA; idx < gB; ++idx) {
+      const int c = list[idx], e = c >> 16, k = c & 0xffff;
+      const int* pe = pos + e * K1;
+      const T* ve = val + e * K1;
+      const int prow = pe[k];
+      const T urow = ve[k];
+      T* arow = acc + (prow * (prow + 1) / 2 - base);
+      int pl[LA_GS];
+      T ul[LA_GS], av[LA_GS];
+#pragma unroll
+      for (int q = 0; q < LA_GS; ++q) {
+        const int l = sub + LA_G * q;
+        pl[q] = l < K1 ? pe[l] : -1;
+        ul[q] = l < K1 ? ve[l] : T(0);
+        if (pl[q] > prow) pl[q] = -1;
+        av[q] = pl[q] >= 0 ? arow[pl[q]] : T(0);
+      }
+#pragma unroll
+      for (int q = 0; q < LA_GS; ++q)
+        if (pl[q] >= 0) arow[pl[q]] = av[q] + urow * ul[q];
+      for (int l = sub + LA_G * LA_GS; l < K1; l += LA_G) {
+        const int pk = pe[l];
+        if (pk >= 0 && pk <= prow) arow[pk] += urow * ve[l];
+      }
+      __syncwarp(gmask);                // the next entry may read what this wrote
+    }
   }
-  if (i == j) acc += dv[n * F1 + i];
-  if (i == F1 - 1) acc += rv[n * F1 + j];
-  front[n * FF + t] = acc;
+  __syncthreads();
+  T* out = front + (long)n * F1 * F1;
+  const T* dn = dv + (long)n * F1;
+  const T* rvn = rv + (long)n * F1;
+  for (int i = r0 + warp; i < r1; i += LA_WARPS) {
+    const T* arow = acc + (i * (i + 1) / 2 - base);
+    T* orow = out + i * F1;
+    for (int j = lane; j <= i; j += 32) {
+      T v = arow[j];
+      if (j == i) v += dn[i];
+      if (i == F1 - 1) v += rvn[j];
+      orow[j] = v;
+    }
+  }
+}
+
+// Block b of a launch over the lower-triangle tiles (ti, tj), tj <= ti, of
+// a region whose tile columns stop at ntj: the first ntj tile rows form a
+// triangle, enumerated row by row, the rest are full rows of ntj tiles.
+__device__ __forceinline__ void tile_of(int b, int ntj, int& ti, int& tj) {
+  const int tri = ntj * (ntj + 1) / 2;
+  if (b < tri) {
+    ti = (int)((sqrtf(8.0f * b + 1.0f) - 1.0f) * 0.5f);
+    while ((ti + 1) * (ti + 2) / 2 <= b) ++ti;
+    while (ti * (ti + 1) / 2 > b) --ti;
+    tj = b - ti * (ti + 1) / 2;
+  } else {
+    b -= tri;
+    ti = ntj + b / ntj;
+    tj = b - (b / ntj) * ntj;
+  }
+}
+
+// number of blocks of such a launch: rows [r0, F1), columns [r0, c1)
+inline int tile_count(int F1, int r0, int c1, int tile) {
+  const int nti = (F1 - r0 + tile - 1) / tile;
+  const int ntj = (c1 - r0 + tile - 1) / tile;
+  return ntj * (ntj + 1) / 2 + (nti - ntj) * ntj;
+}
+
+template <typename T>
+__global__ void __launch_bounds__(EA_THREADS)
+extend_add_kernel(const T* __restrict__ upd, long s_node, long s_child,
+                  int s_row, const int* __restrict__ ext,
+                  const T* __restrict__ dv, const T* __restrict__ rv, int F1,
+                  T* __restrict__ front) {
+  constexpr int NW = EA_THREADS / 32;
+  constexpr int RW = EA_TILE / NW;                 // rows a warp
+  constexpr int CL = EA_TILE / 32;                 // columns a lane
+  __shared__ int ra[2][EA_TILE];                   // the tile's rows' positions
+  const long n = blockIdx.y;
+  int ti, tj;
+  tile_of((int)blockIdx.x, (F1 + EA_TILE - 1) / EA_TILE, ti, tj);
+  const int i0 = ti * EA_TILE, j0 = tj * EA_TILE;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int* e0 = ext + n * 2 * F1;
+  const int* e1 = e0 + F1;
+  const T* c0 = upd + n * s_node;
+  const T* c1 = c0 + s_child;
+  T* out = front + n * F1 * F1;
+  for (int t = threadIdx.x; t < 2 * EA_TILE; t += EA_THREADS) {
+    const int s = t / EA_TILE, i = i0 + t - s * EA_TILE;
+    ra[s][t - s * EA_TILE] = i < F1 ? (s ? e1[i] : e0[i]) : -1;
+  }
+  int b0[CL], b1[CL];
+#pragma unroll
+  for (int c = 0; c < CL; ++c) {
+    const int j = j0 + lane + 32 * c;
+    b0[c] = j < F1 ? e0[j] : -1;
+    b1[c] = j < F1 ? e1[j] : -1;
+  }
+  __syncthreads();
+  // all the children's values first (the children's lower triangles), then
+  // the sums and stores
+  T v[RW][CL];
+#pragma unroll
+  for (int r = 0; r < RW; ++r) {
+    const int i = i0 + warp + NW * r;
+    const int a0 = ra[0][warp + NW * r], a1 = ra[1][warp + NW * r];
+#pragma unroll
+    for (int c = 0; c < CL; ++c) {
+      const int j = j0 + lane + 32 * c;
+      const bool in = j <= i && i < F1;
+      T acc = T(0);
+      if (in && a0 >= 0 && b0[c] >= 0)
+        acc += c0[(a0 > b0[c] ? a0 : b0[c]) * s_row + (a0 > b0[c] ? b0[c] : a0)];
+      if (in && a1 >= 0 && b1[c] >= 0)
+        acc += c1[(a1 > b1[c] ? a1 : b1[c]) * s_row + (a1 > b1[c] ? b1[c] : a1)];
+      v[r][c] = acc;
+    }
+  }
+#pragma unroll
+  for (int r = 0; r < RW; ++r) {
+    const int i = i0 + warp + NW * r;
+    if (i >= F1) continue;
+    T* orow = out + i * F1;
+#pragma unroll
+    for (int c = 0; c < CL; ++c) {
+      const int j = j0 + lane + 32 * c;
+      if (j > i) continue;                 // lower triangle only
+      T acc = v[r][c];
+      if (i == j) acc += dv[n * F1 + i];
+      if (i == F1 - 1) acc += rv[n * F1 + j];
+      orow[j] = acc;
+    }
+  }
 }
 
 // diagonal tile of panel k0 (width kb <= NB): one warp per front, lane =
@@ -240,30 +497,6 @@ __global__ void panel_trsm_kernel(T* __restrict__ front, int F1, int k0,
   for (int c = warp; c < TRSM_ROWS; c += TRSM_ROWS / 32)
     if (lane < kb && rb + c < F1)
       A[(long)(rb + c) * F1 + k0 + lane] = X[c][lane];
-}
-
-// Block b of a launch over the lower-triangle tiles (ti, tj), tj <= ti, of
-// a region whose tile columns stop at ntj: the first ntj tile rows form a
-// triangle, enumerated row by row, the rest are full rows of ntj tiles.
-__device__ __forceinline__ void tile_of(int b, int ntj, int& ti, int& tj) {
-  const int tri = ntj * (ntj + 1) / 2;
-  if (b < tri) {
-    ti = (int)((sqrtf(8.0f * b + 1.0f) - 1.0f) * 0.5f);
-    while ((ti + 1) * (ti + 2) / 2 <= b) ++ti;
-    while (ti * (ti + 1) / 2 > b) --ti;
-    tj = b - ti * (ti + 1) / 2;
-  } else {
-    b -= tri;
-    ti = ntj + b / ntj;
-    tj = b - (b / ntj) * ntj;
-  }
-}
-
-// number of blocks of such a launch: rows [r0, F1), columns [r0, c1)
-inline int tile_count(int F1, int r0, int c1, int tile) {
-  const int nti = (F1 - r0 + tile - 1) / tile;
-  const int ntj = (c1 - r0 + tile - 1) / tile;
-  return ntj * (ntj + 1) / 2 + (nti - ntj) * ntj;
 }
 
 // inner update of one 32-wide panel: rows >= k0+kb, columns [k0+kb, c1)
@@ -565,13 +798,50 @@ int launch_leaf_assemble_bwd(const T* dfront, const T* u, const int* epos,
   return launch_diag_rhs_bwd(dfront, N, F1, ddv, drv, st);
 }
 
+// R bands of about LA_BAND_BYTES (at most F1 bands), the longest band's
+// packed length and the most rows a band has
+template <typename T>
+void leaf_bands(int F1, int& R, int& acc_len, int& rows_max) {
+  const long long tri = (long long)F1 * (F1 + 1) / 2;
+  const long long per = LA_BAND_BYTES / sizeof(T);
+  R = (int)((tri + per - 1) / per);
+  if (R < 1) R = 1;
+  if (R > F1) R = F1;
+  acc_len = rows_max = 0;
+  for (int b = 0; b < R; ++b) {
+    const int r0 = band_start(b, R, F1), r1 = band_start(b + 1, R, F1);
+    const int len = r1 * (r1 + 1) / 2 - r0 * (r0 + 1) / 2;
+    if (len > acc_len) acc_len = len;
+    if (r1 - r0 > rows_max) rows_max = r1 - r0;
+  }
+  acc_len += acc_len & 1;          // keep the staged values 8-byte aligned
+}
+
 template <typename T>
 int launch_leaf_assemble(const T* u, const int* epos, const T* rhs_elem,
                          const T* dv, const T* rv, int N, int EL, int K,
                          int F1, T* front, cudaStream_t st) {
   if (N == 0) return 0;
-  leaf_assemble_kernel<T><<<N, 256, 0, st>>>(u, epos, rhs_elem, dv, rv, EL, K,
-                                             F1, front);
+  int R, acc_len, rows_max;
+  leaf_bands<T>(F1, R, acc_len, rows_max);
+  const int K1 = K + 1;
+  // a chunk: values, positions and list entries of its slots
+  const int per_elem = K1 * (int)(sizeof(T) + 2 * sizeof(int));
+  int CH = LA_STAGE_BYTES / per_elem;
+  if (CH > LA_CHUNK) CH = LA_CHUNK;
+  if (CH * K1 > LA_PF * LA_THREADS) CH = LA_PF * LA_THREADS / K1;
+  if (CH > EL) CH = EL;
+  if (CH < 1) CH = 1;
+  if (K1 > LA_PF * LA_THREADS) return (int)cudaErrorInvalidValue;
+  const size_t smem = (size_t)acc_len * sizeof(T) + (size_t)CH * per_elem +
+                      (2 * (size_t)rows_max + 1) * sizeof(int);
+  cudaError_t rc = cudaFuncSetAttribute(
+      leaf_assemble_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)smem);
+  if (rc) return (int)rc;
+  dim3 grid((unsigned)N, (unsigned)R);
+  leaf_assemble_kernel<T><<<grid, LA_THREADS, smem, st>>>(
+      u, epos, rhs_elem, dv, rv, EL, K, F1, R, CH, acc_len, rows_max, front);
   return (int)cudaGetLastError();
 }
 
@@ -580,10 +850,9 @@ int launch_extend_add(const T* upd, long s_node, long s_child, long s_row,
                       const int* ext, const T* dv, const T* rv, int N, int F1,
                       T* front, cudaStream_t st) {
   if (N == 0) return 0;
-  const long FF = (long)F1 * F1;
-  dim3 grid((unsigned)((FF + 255) / 256), (unsigned)N);
-  extend_add_kernel<T><<<grid, 256, 0, st>>>(upd, s_node, s_child, s_row, ext,
-                                             dv, rv, F1, front);
+  dim3 grid((unsigned)tile_count(F1, 0, F1, EA_TILE), (unsigned)N);
+  extend_add_kernel<T><<<grid, EA_THREADS, 0, st>>>(
+      upd, s_node, s_child, (int)s_row, ext, dv, rv, F1, front);
   return (int)cudaGetLastError();
 }
 

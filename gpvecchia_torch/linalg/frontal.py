@@ -51,9 +51,12 @@ __all__ = ["leaf_assemble", "leaf_assemble_plain", "extend_add",
            "extend_add_plain", "front_factor", "front_factor_plain",
            "front_factor_vjp", "extend_add_bwd", "extend_add_bwd_plain",
            "leaf_assemble_bwd", "leaf_assemble_bwd_plain",
-           "H4_EDGE_SHAPES"]
+           "H2_EDGE_SHAPES", "H3_EDGE_SHAPES", "H4_EDGE_SHAPES",
+           "h2_edge_inputs", "h3_edge_inputs"]
 
 _MAX_GRID_Y = 65535
+_MAX_INT32 = 2 ** 31 - 1
+_LEAF_MAX_SLOTS = 2048    # H2 stages a chunk in 8 slots a thread (csrc)
 
 # (N, F1, P) shapes at the edges of H4's blocked schedule (inner panels of
 # 32 pivots, outer panels of 128, update tiles of 64 and 128), which the
@@ -69,6 +72,78 @@ H4_EDGE_SHAPES = (
     (2, 300, 255), (2, 300, 256), (2, 300, 257), (2, 129, 50),
     (2, 257, 100), (1, 150, 60), (1, 600, 599), (3, 700, 300),
     (2, 900, 130))
+
+# (N, F1, EL, K) shapes at the edges of H2's banded accumulation (rows cut
+# into bands of about 64 KB of the lower triangle, elements in chunks of at
+# most 32, a group of 16 lanes keeping 64 slots in registers): F1 = 1 and 2
+# (the RHS row alone, one pivot), one band with EL = 1, K + 1 slots one past
+# 32 and past 64, fronts one past a 64-tile, the leaf's shape at n=1e6,
+# m=40 (4 bands in float32, 7 in float64, 3 chunks), and a front of 15
+# (float32) and 30 (float64) bands.  ``h2_edge_inputs`` mixes in elements
+# of 0 and of K valid slots, pads among the slots, and all-pad elements at
+# the end.
+H2_EDGE_SHAPES = (
+    (2, 1, 3, 4), (2, 2, 3, 4), (3, 40, 1, 5), (2, 40, 20, 31),
+    (2, 65, 30, 32), (2, 129, 40, 64), (2, 330, 96, 41), (1, 700, 60, 41))
+
+# (N, F1, Bc1, split) shapes at the edges of H3's 64 x 64 tiles: F1 = 1 and
+# 2, one front below, at and one past a tile, several tiles, a child block
+# of the RHS row alone (Bc1 = 1), and with ``split`` child 0 on the first
+# half of the front's positions and child 1 on the second, so that each is
+# absent from whole tiles.
+H3_EDGE_SHAPES = (
+    (2, 1, 1, False), (2, 2, 2, False), (2, 2, 1, False), (3, 63, 40, False),
+    (3, 64, 64, False), (3, 65, 50, False), (2, 129, 64, True),
+    (2, 200, 150, False), (2, 257, 128, True), (1, 600, 300, True))
+
+
+def h2_edge_inputs(N, F1, EL, K, seed):
+    """float64 CPU inputs (u, epos, rhs_elem, dvec, rvec) of
+    ``leaf_assemble`` at an edge shape: element e has K, 0 or a random
+    number of valid slots (e % 3), at random slots and in no order of
+    position; the last EL // 5 elements are all pads (RHS weight 0)."""
+    g = torch.Generator().manual_seed(seed)
+    u = torch.zeros(N, EL, K, dtype=torch.float64)
+    epos = torch.full((N, EL, K), -1, dtype=torch.int32)
+    re = torch.randn(N, EL, generator=g, dtype=torch.float64)
+    real = EL - EL // 5
+    re[:, real:] = 0.0
+    for n in range(N):
+        for e in range(real):
+            k = (K, 0, int(torch.randint(1, K + 1, (1,), generator=g)))[e % 3]
+            k = min(k, F1 - 1)
+            slots = torch.randperm(K, generator=g)[:k]
+            pos = torch.randperm(F1 - 1, generator=g)[:k]
+            epos[n, e, slots] = pos.int()
+            u[n, e, slots] = torch.randn(k, generator=g, dtype=torch.float64)
+    dv = 1.0 + torch.rand(N, F1, generator=g, dtype=torch.float64) + 0.5 * K
+    rv = torch.randn(N, F1, generator=g, dtype=torch.float64)
+    dv[:, F1 - 1] = 0.0
+    rv[:, F1 - 1] = 0.0
+    return u, epos, re, dv, rv
+
+
+def h3_edge_inputs(N, F1, Bc1, split, seed):
+    """float64 CPU inputs (upd, ext, dvec, rvec) of ``extend_add`` at an
+    edge shape: symmetric children's blocks and a monotone ext map with the
+    augmented entry F1-1 -> Bc1-1; child s takes up to Bc1-1 random
+    positions of the front (with ``split``, of its half only)."""
+    g = torch.Generator().manual_seed(seed)
+    upd = torch.randn(N, 2, Bc1, Bc1, generator=g, dtype=torch.float64)
+    upd = upd + upd.mT
+    ext = torch.full((N, 2, F1), -1, dtype=torch.int32)
+    half = (F1 - 1) // 2
+    for n in range(N):
+        for s in (0, 1):
+            lo, hi = ((0, half), (half, F1 - 1))[s] if split else (0, F1 - 1)
+            k = min(Bc1 - 1, hi - lo)
+            pos = lo + torch.randperm(hi - lo, generator=g)[:k].sort().values
+            ext[n, s, pos] = torch.arange(k, dtype=torch.int32)
+            ext[n, s, F1 - 1] = Bc1 - 1
+    dv = 1.0 + torch.rand(N, F1, generator=g, dtype=torch.float64)
+    rv = torch.randn(N, F1, generator=g, dtype=torch.float64)
+    rv[:, F1 - 1] = 0.0
+    return upd, ext, dv, rv
 
 
 def _same_device(name, ref, *tensors):
@@ -109,10 +184,13 @@ def leaf_assemble_plain(u, epos, rhs_elem, dvec, rvec):
     return front
 
 
-def _leaf_launch(u, epos, rhs_elem, dvec, rvec):
+def _leaf_launch(u, epos, rhs_elem, dvec, rvec, front=None):
+    """Launch H2 on contiguous CUDA inputs into ``front`` (a new
+    (N, F1, F1) tensor if None; its upper triangles are left as they are)."""
     N, EL, K = u.shape
     F1 = dvec.shape[1]
-    front = torch.empty(N, F1, F1, dtype=u.dtype, device=u.device)
+    if front is None:
+        front = torch.empty(N, F1, F1, dtype=u.dtype, device=u.device)
     rc = cuda.entry("gpv_leaf_assemble", u.dtype)(
         u.data_ptr(), epos.data_ptr(), rhs_elem.data_ptr(), dvec.data_ptr(),
         rvec.data_ptr(), N, EL, K, F1, front.data_ptr(),
@@ -140,6 +218,12 @@ def leaf_assemble(u, epos, rhs_elem, dvec, rvec):
         raise ValueError("leaf_assemble: shape/dtype mismatch")
     if not _dispatch("leaf_assemble", u, u, rhs_elem, dvec, rvec):
         return leaf_assemble_plain(u, epos, rhs_elem, dvec, rvec)
+    if F1 * F1 > _MAX_INT32 or EL * (K + 1) > _MAX_INT32:
+        raise ValueError("leaf_assemble: a front or a front's elements "
+                         "exceed 32-bit indexing")
+    if K + 1 > _LEAF_MAX_SLOTS:
+        raise ValueError(f"leaf_assemble: {K + 1} slots an element exceed "
+                         f"the kernel's {_LEAF_MAX_SLOTS}")
     return _leaf_launch(*(t.contiguous()
                           for t in (u, epos, rhs_elem, dvec, rvec)))
 
@@ -167,10 +251,12 @@ def extend_add_plain(upd, ext, dvec, rvec):
     return front
 
 
-def _eadd_launch(upd, ext, dvec, rvec):
+def _eadd_launch(upd, ext, dvec, rvec, front=None):
+    """Launch H3 as ``_leaf_launch`` launches H2."""
     N = upd.shape[0]
     F1 = ext.shape[-1]
-    front = torch.empty(N, F1, F1, dtype=upd.dtype, device=upd.device)
+    if front is None:
+        front = torch.empty(N, F1, F1, dtype=upd.dtype, device=upd.device)
     sn, sc, sr, _ = upd.stride()
     rc = cuda.entry("gpv_extend_add", upd.dtype)(
         upd.data_ptr(), sn, sc, sr, ext.data_ptr(), dvec.data_ptr(),
@@ -202,6 +288,9 @@ def extend_add(upd, ext, dvec, rvec):
         upd = upd.contiguous()
     if N > _MAX_GRID_Y:
         raise ValueError(f"extend_add: {N} fronts exceed the grid bound")
+    if F1 * F1 > _MAX_INT32 or (Bc1 - 1) * upd.stride(2) + Bc1 > _MAX_INT32:
+        raise ValueError("extend_add: a front or a child block exceeds "
+                         "32-bit indexing")
     ext, dvec, rvec = (t.contiguous() for t in (ext, dvec, rvec))
     return _eadd_launch(upd, ext, dvec, rvec)
 

@@ -19,9 +19,11 @@ from gpvecchia_tpu.linalg.multifrontal import mf_device_arrays as jax_mfdev
 from gpvecchia_tpu.linalg.multifrontal import mf_factor as jax_mf_factor
 
 from gpvecchia_torch import vecchia_specify
-from gpvecchia_torch.linalg.frontal import (H4_EDGE_SHAPES, extend_add,
+from gpvecchia_torch.linalg.frontal import (H2_EDGE_SHAPES, H3_EDGE_SHAPES,
+                                            H4_EDGE_SHAPES, extend_add,
                                             extend_add_plain, front_factor,
                                             front_factor_plain,
+                                            h2_edge_inputs, h3_edge_inputs,
                                             leaf_assemble_plain)
 from gpvecchia_torch.linalg.multifrontal import mf_device_arrays, mf_factor
 from gpvecchia_torch.plan import get_mf_plan, get_plan
@@ -268,6 +270,95 @@ def test_h2_h4_match_fused_leaf(interpret):
                                     jnp.asarray(np.swapaxes(epos_aug, 1, 2)),
                                     jnp.asarray(diag2), P, B1, F1)
     front = leaf_assemble_plain(_t(u), _t(epos), _t(re), _t(diag), _t(rhs))
+    lpp, lbp, updp = _factored_parts(front_factor_plain(front, P), P)
+    np.testing.assert_allclose(lpp, np.asarray(L_pp), rtol=0, atol=ATOL)
+    np.testing.assert_allclose(lbp, np.asarray(L_bp), rtol=0, atol=ATOL)
+    np.testing.assert_allclose(updp, np.asarray(upd)[:, :B1], rtol=0,
+                               atol=ATOL)
+
+
+def test_h2_h3_edge_shapes_cover_the_kernels():
+    """The lists the card check runs hold the edges of H2's bands and H3's
+    64-tiles, and their inputs the element and child patterns named."""
+    f1_h3 = {F1 for _, F1, _, _ in H3_EDGE_SHAPES}
+    assert {1, 2, 63, 64, 65, 129, 257} <= f1_h3
+    assert any(Bc1 == 1 for _, _, Bc1, _ in H3_EDGE_SHAPES)
+    assert any(split and F1 > 128 for _, F1, _, split in H3_EDGE_SHAPES)
+    upd, ext, _, _ = h3_edge_inputs(2, 257, 128, True, 0)
+    assert (ext[:, 1, :64] < 0).all() and (ext[:, 0, 128:256] < 0).all()
+    assert torch.equal(upd, upd.mT)
+    assert all((np.diff(e[e >= 0].numpy()) > 0).all()
+               for e in ext.reshape(-1, 257))
+    f1_h2 = {F1 for _, F1, _, _ in H2_EDGE_SHAPES}
+    assert {1, 2, 65, 129, 330} <= f1_h2
+    assert any(EL == 1 for _, _, EL, _ in H2_EDGE_SHAPES)
+    assert {31, 32, 64} <= {K for _, _, _, K in H2_EDGE_SHAPES}
+    u, epos, re, _, _ = h2_edge_inputs(2, 330, 96, 41, 0)
+    valid = (epos >= 0).sum(-1)
+    assert (valid == 41).any() and (valid[:, :-19] == 0).any()
+    assert (valid[:, -19:] == 0).all() and (re[:, -19:] == 0).all()
+    assert ((u != 0) <= (epos >= 0)).all()
+    assert any((np.diff(p[p >= 0].numpy()) < 0).any()
+               for p in epos.reshape(-1, 41))
+
+
+def _np(t, dt=np.float32):
+    return t.numpy().astype(dt)
+
+
+@pytest.mark.parametrize("shape", H3_EDGE_SHAPES)
+def test_h3_plain_at_edge_shapes_matches_pallas(interpret, shape):
+    """extend_add's plain version (the kernel's oracle on the card, which
+    must equal it bit for bit) against eadd_fronts and assemble_fronts at
+    H3's edge shapes."""
+    N, F1, Bc1, _ = shape
+    upd, ext, dv, rv = h3_edge_inputs(*shape, seed=F1 + Bc1)
+    upd32 = _np(upd)
+    ref = pe.eadd_fronts(jnp.asarray(upd32), jnp.asarray(ext.numpy()), F1)
+    zero = torch.zeros(N, F1)
+    np.testing.assert_allclose(
+        extend_add_plain(_t(upd32), ext, zero, zero).numpy(), np.asarray(ref),
+        rtol=0, atol=ATOL)
+    chp, starts, rel, T, diag2, diagT = _pallas_level_args(
+        upd32, ext.numpy(), _np(dv), _np(rv), Bc1, F1)
+    ref = PL.assemble_fronts(jnp.asarray(chp), jnp.asarray(starts),
+                             jnp.asarray(rel), jnp.asarray(diag2),
+                             jnp.asarray(diagT), Bc1, F1, T)
+    np.testing.assert_allclose(
+        extend_add_plain(_t(upd32), ext, _t(_np(dv)), _t(_np(rv))).numpy(),
+        np.asarray(ref)[:, :F1, :F1], rtol=0, atol=ATOL)
+
+
+@pytest.mark.parametrize("shape", [s for s in H2_EDGE_SHAPES if s[1] <= 330])
+def test_h2_plain_at_edge_shapes_matches_pallas(interpret, shape):
+    """leaf_assemble's plain version (the kernel's oracle on the card)
+    against fused_leaf at H2's edge shapes, compared after the partial
+    factor that fused_leaf applies (P = (F1 - 1) // 2).  fused_leaf needs a
+    pivot, so F1 = 1 (the RHS row alone) is held against the dense sum."""
+    N, F1, EL, K = shape
+    u, epos, re, dv, rv = h2_edge_inputs(*shape, seed=F1 + EL)
+    front = leaf_assemble_plain(u, epos, re, dv, rv)
+    if F1 == 1:
+        np.testing.assert_allclose(front[:, 0, 0].numpy(),
+                                   (re ** 2).sum(1).numpy() + dv[:, 0].numpy(),
+                                   rtol=1e-14)
+        return
+    P = max(1, (F1 - 1) // 2)
+    B1 = F1 - P
+    ELp = PL._ru(EL, 8)
+    pad = ((0, 0), (0, ELp - EL))
+    u_aug = np.concatenate([np.pad(_np(u), pad + ((0, 0),)),
+                            np.pad(_np(re), pad)[..., None]], axis=2)
+    epos_aug = np.concatenate(
+        [np.pad(epos.numpy(), pad + ((0, 0),), constant_values=-1),
+         np.where(np.arange(ELp) < EL, F1 - 1, -1)[None, :, None]
+         .repeat(N, 0).astype(np.int32)], axis=2)
+    diag2 = np.zeros((N, 8, PL._ru(F1, PL._TE)), np.float32)
+    diag2[:, 0, :F1] = _np(dv)
+    diag2[:, 1, :F1] = _np(rv)
+    L_pp, L_bp, upd = PL.fused_leaf(jnp.asarray(np.swapaxes(u_aug, 1, 2)),
+                                    jnp.asarray(np.swapaxes(epos_aug, 1, 2)),
+                                    jnp.asarray(diag2), P, B1, F1)
     lpp, lbp, updp = _factored_parts(front_factor_plain(front, P), P)
     np.testing.assert_allclose(lpp, np.asarray(L_pp), rtol=0, atol=ATOL)
     np.testing.assert_allclose(lbp, np.asarray(L_bp), rtol=0, atol=ATOL)
