@@ -82,8 +82,24 @@ Builds the host library and the CUDA kernels from this checkout, then
    the default size also the same estimate to convergence in f32 and in
    f64 (theta_hat, iterations and dropped rows, reported), and a check at
    n=2000 on a dense GP draw in f64: the card's estimate must reach the
-   CPU's log-likelihood to 1e-6 relative.
-   --n 1000000 --m 40 runs phases 2-4 in f32 only.
+   CPU's log-likelihood to 1e-6 relative;
+6. prediction phase: ``vecchia_prediction`` (posterior means and
+   selected-inverse variances through the kept multifrontal factor) on the
+   run's SGV spec (bench.py cfg2), and at the default size also on an SGV
+   spec of the same points with PRED_N_PRED prediction points in the
+   general ordering; the mean and the selected inverse timed apart
+   (``pred_mean_ms``, ``pred_selinv_ms``: median of 5).  At the default
+   size f64 on the card is held against the CPU plain path and f32 against
+   f64; at n > 1e5 f32 against one f64 run on the card;
+7. Vecchia-Laplace phase: ``calculate_posterior_VL``, logistic, on
+   Bernoulli(0.5) data at the run's size in f32 (bench.py cfg4: ``vl_nr_ms``,
+   ``vl_iters``, ``vl_iter_ms``, ``vl_cnvgd``, reported, never required)
+   and once in f64 (reported), and f64 on the card against the CPU plain
+   path on an SGV spec of the first VL_CHECK_N points.
+   The launch counters of H1-H4 are reset just before each run of phases
+   6 and 7 on a spec and must be positive after it.
+   --n 1000000 --m 40 runs phases 2-4 and 6 in f32 only (6 holds f32
+   against one f64 run on the card).
 
 The kernel phase also computes each kernel's bound (the least time the card
 could take: the larger of the bytes its inputs and outputs need over the
@@ -91,6 +107,10 @@ HBM rate and its operations over the SIMT peak) and, where one PyTorch call
 computes the same function (H1 and H8: ``torch.linalg.solve`` on the
 conditioning matrices), that call's time.  No one call builds log K_nu and
 solves, so the general H1 and H5 have none.
+
+``--profile`` adds torch.profiler tables of one f32 evaluation, one
+closed-form and one smoothness-0.8 value+grad, and one prediction mean and
+one selected inverse.
 
 ``--only-h4`` is a tool for work on H4: it builds the kernels, runs the edge
 shapes and the level phase on the fixed table of the 14 level shapes of
@@ -204,6 +224,26 @@ CROSS_REL = 1e-10
 # Estimation: the card's L-BFGS-B estimate vs the CPU's, log-likelihood at
 # the estimate, f64 (the same iterates up to gradient rounding).
 EST_REL = 1e-6
+# Prediction (posterior means and variances, each output -- mu_obs, mu_pred,
+# var_obs, var_pred -- held as max |difference| over its own max |reference|):
+#  * f64 card vs f64 CPU plain path: PRED_F64_REL (the same factor, solves
+#    and selected inverse in other summation orders).
+#  * f32 card vs f64 card: PRED_F32_REL.  On the CPU at n=2e4, m=20
+#    (bench.py's data, SGV, without and with 2000 prediction points in the
+#    general ordering) f32 vs f64 measured 2.5e-6 to 7.2e-6 by this rule,
+#    so it leaves a factor ~30 for the card's summation orders and the
+#    larger n.
+PRED_F64_REL = 1e-9
+PRED_F32_REL = 2e-4
+PRED_N_PRED = 10_000     # prediction points of the default size's second spec
+# Vecchia-Laplace (logistic, Bernoulli(0.5) data, bench.py cfg4): f64 card
+# vs f64 CPU on an SGV spec of the first VL_CHECK_N points with m =
+# VL_CHECK_M (the CPU's time bounded): the same iterations and convergence
+# flag, the posterior mean and the pseudo-nuggets D to VL_F64_REL of their
+# max |reference|.  Convergence is reported, never required.
+VL_MAX_ITER = 30
+VL_CHECK_N, VL_CHECK_M = 20_000, 20
+VL_F64_REL = 1e-9
 
 COVPARMS = (1.0, 0.2, 0.5)
 # A smoothness without closed form.  The range is 0.05, not 0.2: at 0.2
@@ -1603,10 +1643,7 @@ def value_grad(fn, zt, nug, covparms=COVPARMS):
 
 def profile_eval(spec, z, grad, covparms=COVPARMS):
     """One warm f32 evaluation (value and gradient if ``grad``) under
-    torch.profiler: device time by kernel and the device's busy share of
-    its wall time."""
-    from torch.profiler import ProfilerActivity, profile
-
+    torch.profiler."""
     import gpvecchia_torch as gt
     fn = gt.loglik_fn(spec, device="cuda", dtype=torch.float32)
     zt = torch.as_tensor(z, dtype=torch.float32, device="cuda")
@@ -1616,6 +1653,38 @@ def profile_eval(spec, z, grad, covparms=COVPARMS):
             value_grad(fn, zt, NUGGET, covparms)
         else:
             float(fn(zt, covparms, NUGGET))
+
+    profile_call(("value+grad" if grad else "eval") + f" at {covparms}",
+                 once)
+
+
+def profile_pred(spec, z):
+    """One warm f32 prediction mean (factor kept, back-substitution) and one
+    selected inverse on its factor under torch.profiler."""
+    from gpvecchia_torch.inference.prediction import _pred_fns
+    (mean_fn, var_fn), _ = _pred_fns(spec, "matern", torch.device("cuda"),
+                                     torch.float32)
+    zt = torch.as_tensor(z, dtype=torch.float32, device="cuda")
+    held = {}
+
+    def mean():
+        held["fac"] = None
+        held["fac"] = mean_fn(zt, COVPARMS, NUGGET)[1]
+        torch.cuda.synchronize()
+
+    def selinv():
+        var_fn(held["fac"])
+        torch.cuda.synchronize()
+
+    profile_call(f"prediction mean at {COVPARMS}", mean)
+    profile_call("prediction selected inverse", selinv)
+    held.clear()
+
+
+def profile_call(what, once):
+    """``once()`` warm under torch.profiler: device time by kernel and the
+    device's busy share of its wall time (``once`` must synchronize)."""
+    from torch.profiler import ProfilerActivity, profile
 
     once()
     torch.cuda.synchronize()
@@ -1635,7 +1704,6 @@ def profile_eval(spec, z, grad, covparms=COVPARMS):
         elif b > end:
             busy += b - end
             end = b
-    what = ("value+grad" if grad else "eval") + f" at {covparms}"
     log(prof.key_averages().table(sort_by="self_device_time_total",
                                   row_limit=30))
     log(f"profile: {what} wall {wall_us / 1e3:.2f} ms, device busy "
@@ -2179,6 +2247,255 @@ def dtype_estimates(locs, z, m):
     return out
 
 
+PRED_KEYS = ("mu_obs", "mu_pred", "var_obs", "var_pred")
+
+
+def _pred_errors(got, ref):
+    """Each output's max |got - ref| over its max |ref|."""
+    return {k: float(np.abs(got[k] - ref[k]).max() / np.abs(ref[k]).max())
+            for k in PRED_KEYS if ref[k].size}
+
+
+def _check_pred(label, out, spec):
+    """Finite means and positive finite variances of the expected shapes."""
+    for k in PRED_KEYS:
+        size = spec.n_obs if k.endswith("obs") else spec.n_pred
+        v = out[k]
+        if v.shape != (size,) or not np.all(np.isfinite(v)) or (
+                k.startswith("var") and not np.all(v > 0)):
+            raise AssertionError(f"{label}: {k} of shape {v.shape} not "
+                                 f"({size},), not finite or not positive")
+
+
+def _drop_f64_caches(spec):
+    """Drop the f64 device arrays and functions cached in the plan."""
+    from gpvecchia_torch.plan import get_plan
+    cache = get_plan(spec).cache
+    for k in [k for k in cache if torch.float64 in k]:
+        del cache[k]
+    torch.cuda.empty_cache()
+
+
+def cost_posterior(mf, dt):
+    """{"backsub" | "selinv": (bytes, operations)} on a kept factor of the
+    plan ``mf``: each level's L_pp lower triangle and L_bp read once and x
+    (the diagonal) written once; the operations of the back-substitution
+    (triangular solve, border product) and of the selected inverse
+    (L_pp^{-1}, the symmetric L_pp^{-T} L_pp^{-1}, G = L_bp L_pp^{-1},
+    S_bb G, the symmetric G^T S_bp; at the leaf the diagonals alone)."""
+    size = _size(dt)
+    out = {"backsub": [mf.n_vert * size, 0.0],
+           "selinv": [mf.n_vert * size, 0.0]}
+    for d, lv in enumerate(mf.levels):
+        N, P, B = lv.piv_ids.shape[0], lv.npiv, lv.nbord
+        read = N * (P * (P + 1) // 2 + B * P) * size
+        leaf = d == mf.depth and B > 0 and d > 0
+        tail = (P * P + 2 * B * P) if leaf else (P ** 3 / 3 + B * P * P)
+        out["backsub"][0] += read
+        out["backsub"][1] += N * (P * P + 2 * B * P)
+        out["selinv"][0] += read
+        out["selinv"][1] += N * (P ** 3 / 3 + B * P * P + 2 * B * B * P
+                                 + tail)
+    return {k: tuple(v) for k, v in out.items()}
+
+
+def pred_run(spec, z, big, counters, label):
+    """Posterior prediction on the card through ``vecchia_prediction`` (f32;
+    at the default size f64 too), then, through the cached functions it
+    runs, the mean (factor kept, back-substitution) and the selected
+    inverse on that factor timed apart: median of 5, warm (bench.py cfg2's
+    ``pred_mean_ms`` and ``pred_selinv_ms``), and the back-substitution
+    alone, the last two beside their bounds (``cost_posterior``: plain
+    torch, no hand kernel, so in no ``kernels`` row).  The counts of
+    ``counters``
+    are set to 0 first and each must be positive at the end.  Then the
+    checks: at the default size f64 on the card against the CPU plain path
+    and f32 against f64; at n > 1e5 f32 against one f64 run on the card."""
+    import gpvecchia_torch as gt
+    from gpvecchia_torch.inference.prediction import _pred_fns
+    from gpvecchia_torch.linalg.multifrontal import mf_backward
+    from gpvecchia_torch.plan import get_mf_plan, get_plan
+    mf, _ = get_mf_plan(get_plan(spec))
+    for k in counters:
+        k.launches = 0
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    res, outs = {}, {}
+    for dt in ((torch.float32,) if big else (torch.float64, torch.float32)):
+        name = str(dt).split(".")[-1]
+        t0 = time.perf_counter()
+        out = gt.vecchia_prediction(z, spec, COVPARMS, NUGGET, device="cuda",
+                                    dtype=dt)
+        first_s = time.perf_counter() - t0
+        del out["V"], out["_plan"]
+        _check_pred(f"{label} {name}", out, spec)
+        outs[name] = out
+        (mean_fn, var_fn), _ = _pred_fns(spec, "matern",
+                                         torch.device("cuda"), dt)
+        zt = torch.as_tensor(z, dtype=dt, device="cuda")
+        t_mean, t_var, t_bs = [], [], []
+        for _ in range(5):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            mu, fac = mean_fn(zt, COVPARMS, NUGGET)
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            d = var_fn(fac)
+            torch.cuda.synchronize()
+            t2 = time.perf_counter()
+            with torch.no_grad():
+                mf_backward(fac)
+            torch.cuda.synchronize()
+            t_mean.append((t1 - t0) * 1e3)
+            t_var.append((t2 - t1) * 1e3)
+            t_bs.append((time.perf_counter() - t2) * 1e3)
+            del mu, fac, d
+        costs = cost_posterior(mf, dt)
+        res[name] = dict(first_s=first_s,
+                         pred_mean_ms=statistics.median(t_mean),
+                         pred_selinv_ms=statistics.median(t_var),
+                         backsub_ms=statistics.median(t_bs))
+        for part in ("backsub", "selinv"):
+            res[name][part + "_bound_ms"], res[name][part + "_bound_by"] = \
+                _bound(*costs[part], dt)
+        r = res[name]
+        log(f"  cuda {name}: vecchia_prediction first call {first_s:.2f} s; "
+            f"mean {r['pred_mean_ms']:.2f} ms, selected inverse "
+            f"{r['pred_selinv_ms']:.2f} ms (bound {r['selinv_bound_ms']:.3f} "
+            f"by {r['selinv_bound_by']}), the mean's back-substitution "
+            f"alone {r['backsub_ms']:.2f} ms (bound {r['backsub_bound_ms']:.3f} "
+            f"by {r['backsub_bound_by']}) (medians of 5)")
+    launches = {k.__name__: k.launches for k in counters}
+    peak = torch.cuda.max_memory_allocated()
+    res.update(launches=launches, peak_bytes=peak, base_bytes=base)
+    log(f"  launches: {launches}; peak device memory {peak / 2**30:.3f} GiB "
+        f"({(peak - base) / 2**30:.3f} above the phase's start)")
+    if min(launches.values()) <= 0:
+        raise AssertionError(f"{label}: a kernel of the prediction path "
+                             f"never launched: {launches}")
+    if big:
+        ref = gt.vecchia_prediction(z, spec, COVPARMS, NUGGET, device="cuda",
+                                    dtype=torch.float64,
+                                    return_values="meanvar")
+        _check_pred(f"{label} float64", ref, spec)
+        outs["float64"] = ref
+        _drop_f64_caches(spec)
+    else:
+        t0 = time.perf_counter()
+        cpu = gt.vecchia_prediction(z, spec, COVPARMS, NUGGET, device="cpu",
+                                    return_values="meanvar")
+        e64 = _pred_errors(outs["float64"], cpu)
+        res["f64_vs_cpu"] = e64
+        log(f"  cpu float64 plain path ({time.perf_counter() - t0:.1f} s); "
+            f"cuda f64 vs cpu f64: "
+            + ", ".join(f"{k} {v:.3e}" for k, v in e64.items())
+            + f" (tol {PRED_F64_REL:g})")
+        if max(e64.values()) > PRED_F64_REL:
+            raise AssertionError(f"{label}: the card's f64 prediction "
+                                 "disagrees with the CPU's")
+    e32 = _pred_errors(outs["float32"], outs["float64"])
+    res["f32_vs_f64"] = e32
+    log(f"  cuda f32 vs cuda f64: "
+        + ", ".join(f"{k} {v:.3e}" for k, v in e32.items())
+        + f" (tol {PRED_F32_REL:g})")
+    if max(e32.values()) > PRED_F32_REL:
+        raise AssertionError(f"{label}: f32 prediction disagrees with f64")
+    return res
+
+
+def pred_phase(spec, locs, z, big, counters, locs_pred):
+    """``pred_run`` on this run's spec and, at the default size, on an SGV
+    spec of the same points with ``locs_pred`` in the general ordering."""
+    import gpvecchia_torch as gt
+    log(f"  SGV spec of the run (n={spec.n_obs}, m={spec.m}):")
+    res = {"spec": pred_run(spec, z, big, counters, "prediction")}
+    if not big:
+        t0 = time.perf_counter()
+        spec_p = gt.vecchia_specify(locs, m=spec.m, cond_yz="SGV",
+                                    locs_pred=locs_pred,
+                                    ordering_pred="general")
+        log(f"  SGV spec with {locs_pred.shape[0]} prediction points, "
+            f"general ordering ({time.perf_counter() - t0:.1f} s):")
+        res["pred_points"] = pred_run(spec_p, z, big, counters,
+                                      "prediction points")
+    return res
+
+
+def vl_phase(spec, locs, zb, big, counters):
+    """Vecchia-Laplace, logistic, on Bernoulli(0.5) data (bench.py cfg4):
+    ``calculate_posterior_VL`` in f32 on the card, max_iter VL_MAX_ITER,
+    once warm and then 3 times (``vl_nr_ms`` the median of their runtime;
+    ``vl_iters``, ``vl_iter_ms``, ``vl_cnvgd``), with the counts of
+    ``counters`` set to 0 first and each positive after those runs; once
+    in f64 at the same size (reported).  Then f64 on the card against the
+    CPU plain path on an SGV spec of the first VL_CHECK_N points, m =
+    VL_CHECK_M."""
+    import gpvecchia_torch as gt
+    for k in counters:
+        k.launches = 0
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    kw = dict(max_iter=VL_MAX_ITER, device="cuda", dtype=torch.float32)
+    t0 = time.perf_counter()
+    gt.calculate_posterior_VL(zb, spec, "logistic", COVPARMS, **kw)
+    first_s = time.perf_counter() - t0
+    runs = [gt.calculate_posterior_VL(zb, spec, "logistic", COVPARMS, **kw)
+            for _ in range(3)]
+    launches = {k.__name__: k.launches for k in counters}
+    peak = torch.cuda.max_memory_allocated()
+    iters = runs[0]["iter"]
+    for r in runs:
+        if r["iter"] != iters or r["mean"].shape != zb.shape \
+                or not np.all(np.isfinite(r["mean"])):
+            raise AssertionError("VL: mean not finite or runs differ")
+    nr_ms = statistics.median(r["runtime"] * 1e3 for r in runs)
+    res = dict(vl_nr_ms=nr_ms, vl_iters=iters,
+               vl_iter_ms=nr_ms / max(iters, 1), vl_cnvgd=runs[0]["cnvgd"],
+               first_s=first_s, launches=launches, peak_bytes=peak,
+               base_bytes=base)
+    log(f"  cuda float32: first call {first_s:.2f} s; NR solve "
+        f"{nr_ms:.2f} ms (median of 3), {iters} iterations "
+        f"({res['vl_iter_ms']:.2f} ms each), converged {res['vl_cnvgd']}")
+    log(f"  launches: {launches}; peak device memory {peak / 2**30:.3f} GiB "
+        f"({(peak - base) / 2**30:.3f} above the phase's start)")
+    if min(launches.values()) <= 0:
+        raise AssertionError(f"VL: a kernel of the NR path never launched: "
+                             f"{launches}")
+    # f64 at the same size, once: its iterations and convergence beside
+    # f32's (reported), and how far f32's mean lies from it
+    p64 = gt.calculate_posterior_VL(zb, spec, "logistic", COVPARMS,
+                                    max_iter=VL_MAX_ITER, device="cuda")
+    res["float64"] = dict(
+        runtime_ms=p64["runtime"] * 1e3, iters=p64["iter"],
+        cnvgd=p64["cnvgd"], f32_mean_vs_f64=float(
+            np.abs(runs[0]["mean"] - p64["mean"]).max()
+            / np.abs(p64["mean"]).max()))
+    log(f"  cuda float64 once: {res['float64']['runtime_ms']:.2f} ms, "
+        f"{p64['iter']} iterations, converged {p64['cnvgd']}; f32 mean vs "
+        f"f64 {res['float64']['f32_mean_vs_f64']:.3e} of its max "
+        "(reported)")
+    del p64
+    nc = min(VL_CHECK_N, zb.size)
+    t0 = time.perf_counter()
+    sub = gt.vecchia_specify(locs[:nc], m=VL_CHECK_M, cond_yz="SGV")
+    post = {dev: gt.calculate_posterior_VL(
+        zb[:nc], sub, "logistic", COVPARMS, max_iter=VL_MAX_ITER, device=dev)
+        for dev in ("cuda", "cpu")}
+    errs = {k: float(np.abs(post["cuda"][k] - post["cpu"][k]).max()
+                     / np.abs(post["cpu"][k]).max()) for k in ("mean", "D")}
+    same = [(p["iter"], p["cnvgd"]) for p in post.values()]
+    res["check"] = dict(n=nc, m=VL_CHECK_M, errors=errs,
+                        iter=post["cpu"]["iter"], cnvgd=post["cpu"]["cnvgd"])
+    log(f"  n={nc}, m={VL_CHECK_M}, f64 ({time.perf_counter() - t0:.1f} s): "
+        f"(iterations, converged) cuda {same[0]}, cpu {same[1]}; cuda vs "
+        f"cpu mean {errs['mean']:.3e}, D {errs['D']:.3e} (tol "
+        f"{VL_F64_REL:g})")
+    if same[0] != same[1] or max(errs.values()) > VL_F64_REL:
+        raise AssertionError("VL: the card's f64 solve disagrees with the "
+                             "CPU's")
+    return res
+
+
 def _jsonable(r, summary=False):
     """(loglik, dcovparms, dnuggets) as JSON values; ``summary`` keeps only
     the largest |dnuggets| of a vector."""
@@ -2193,9 +2510,9 @@ def main():
     ap.add_argument("--m", type=int, default=20)
     ap.add_argument("--seed", type=int, default=1988)
     ap.add_argument("--profile", action="store_true",
-                    help="profile one f32 evaluation and one f32 "
-                         "value+grad (kernel time by name, device busy "
-                         "share)")
+                    help="profile one f32 evaluation, f32 value+grads "
+                         "and one f32 prediction mean and selected inverse "
+                         "(kernel time by name, device busy share)")
     ap.add_argument("--only-h4", action="store_true",
                     help="a tool for work on H4: build, H4's edge shapes and "
                          "H4 at the 14 level shapes of n=1e6, m=40, and "
@@ -2273,6 +2590,8 @@ def main():
     rng = np.random.default_rng(args.seed)
     locs = rng.uniform(size=(args.n, 2))
     z = rng.normal(size=args.n)
+    locs_pred = rng.uniform(size=(PRED_N_PRED, 2))
+    zb = (rng.uniform(size=args.n) < 0.5).astype(np.float64)
     t0 = time.perf_counter()
     spec = gt.vecchia_specify(locs, m=args.m, cond_yz="SGV")
     spec_s = time.perf_counter() - t0
@@ -2353,10 +2672,7 @@ def main():
             raise AssertionError("slice: f32 disagrees with f64")
         # the f64 run's device arrays stay cached in the plan (1.13 GiB at
         # n=1e6): drop them, so that the later phases' peaks are f32's
-        cache = get_plan(spec).cache
-        for k in [k for k in cache if torch.float64 in k]:
-            del cache[k]
-        torch.cuda.empty_cache()
+        _drop_f64_caches(spec)
     key_ms = statistics.median(_host_ms(lambda: zkey(z)) for _ in range(5))
     res["zkey_ms"] = key_ms
     log(f"  z-cache key of the numpy z ({z.size} values, full digest): "
@@ -2392,10 +2708,17 @@ def main():
     log("estimation phase:")
     est = estimate_phase(locs, z, args.m, big, args.seed)
 
+    log("prediction phase:")
+    pred = pred_phase(spec, locs, z, big, counters, locs_pred)
+
+    log("Vecchia-Laplace phase (logistic):")
+    vl = vl_phase(spec, locs, zb, big, counters)
+
     if args.profile:
         profile_eval(spec, z, grad=False)
         profile_eval(spec, z, grad=True)
         profile_eval(spec, z, grad=True, covparms=GEN_COVPARMS)
+        profile_pred(spec, z)
 
     ms_cu = "gpvecchia_torch/csrc/matern_solve.cu"
     regs_cu = "gpvecchia_torch/csrc/matern_regs.cuh"  # H1, H5 at small F
@@ -2448,8 +2771,15 @@ def main():
     gen_json = {k: (dict(v, grad=_jsonable(v["grad"]))
                     if isinstance(v, dict) and "grad" in v else v)
                 for k, v in gen.items()}
+    bench_names = dict(
+        pred_mean_ms=pred["spec"]["float32"]["pred_mean_ms"],
+        pred_selinv_ms=pred["spec"]["float32"]["pred_selinv_ms"],
+        **{k: vl[k] for k in ("vl_nr_ms", "vl_iters", "vl_iter_ms",
+                              "vl_cnvgd")})
+    log(f"posterior (f32, bench.py's names): {bench_names}")
     print(json.dumps({"slice": res, "grad": grad_json, "general": gen_json,
-                      "estimate": est, "n": args.n, "m": args.m,
+                      "estimate": est, "prediction": pred, "vl": vl,
+                      **bench_names, "n": args.n, "m": args.m,
                       "spec_s": spec_s, "plan_s": plan_s,
                       "peak_bytes": peak, "grad_peak_bytes": grad_peak,
                       "general_peak_bytes": gen_peak,

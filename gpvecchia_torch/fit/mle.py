@@ -1,4 +1,5 @@
-"""Covariance-parameter estimation by Vecchia MLE (``vecchia_estimate``).
+"""Covariance-parameter estimation by Vecchia MLE (``vecchia_estimate``),
+and prediction with the estimate (``vecchia_pred``).
 
 The port of the JAX package's ``fit/mle.py`` (GPvecchia
 R/vecchia_wrappers.R:28-131): trend handling, the theta.ini heuristic, and
@@ -12,15 +13,18 @@ float64 on the host, where the optimizers work.
 
 from __future__ import annotations
 
+import warnings
+
 import numpy as np
 import torch
 from scipy.optimize import minimize
 from scipy.spatial.distance import pdist
 
 from ..inference.likelihood import loglik_fn, resolve_device
+from ..inference.prediction import vecchia_prediction
 from ..spec import vecchia_specify
 
-__all__ = ["vecchia_estimate"]
+__all__ = ["vecchia_estimate", "vecchia_pred"]
 
 
 def _detrend(data, X):
@@ -149,3 +153,33 @@ def vecchia_estimate(data, locs, X="constant", m=20, covmodel="matern",
             "trend": trend, "locs": locs, "covmodel": covmodel,
             "spec": spec, "n_iter": n_iter, "converged": bool(converged),
             "loglik": -value(np.log(theta_hat))}
+
+
+def vecchia_pred(vecchia_est, locs_pred, X_pred=None, m=30, *, device="cuda",
+                 dtype=torch.float64, **specify_kwargs):
+    """Predictions with estimated parameters (R/vecchia_wrappers.R:134-161).
+
+    Runs on the specs ``vecchia_prediction`` takes: pass
+    ``cond_yz="SGV", ordering_pred="general"`` (or y/z/SGVT); the default
+    spec with prediction points (cond_yz 'zy', obspred ordering) is not
+    ported and raises ``NotImplementedError``.
+    """
+    locs_pred = np.asarray(locs_pred, np.float64)
+    spec = vecchia_specify(vecchia_est["locs"], m, locs_pred=locs_pred,
+                           **specify_kwargs)
+    theta = vecchia_est["theta_hat"]
+    preds = vecchia_prediction(vecchia_est["z"], spec, theta[:-1], theta[-1],
+                               covmodel=vecchia_est["covmodel"],
+                               device=device, dtype=dtype)
+    trend = vecchia_est["trend"]
+    if X_pred is not None:
+        mu_pred = preds["mu_pred"] + np.asarray(X_pred) @ vecchia_est["beta_hat"]
+    elif trend == "none":
+        mu_pred = preds["mu_pred"]
+    elif trend == "constant":
+        mu_pred = preds["mu_pred"] + vecchia_est["beta_hat"][0]
+    else:
+        warnings.warn("X_pred was not specified, so no trend was added back "
+                      "to the predictions")
+        mu_pred = preds["mu_pred"]
+    return {"mean_pred": mu_pred, "var_pred": preds["var_pred"]}

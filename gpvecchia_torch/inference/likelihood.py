@@ -61,6 +61,12 @@ def _device_arrays(plan, device, dtype):
         mfp, vert_obs = get_mf_plan(plan)
         dev["mf"] = mf_device_arrays(mfp, device)
         dev["vert_obs"] = t(vert_obs, torch.long)
+        dev["vert_pt"] = t(np.flatnonzero(plan.has_latent_pts), torch.long)
+        if plan.known_pts.any():
+            # exact (zero-nugget) observations: their point and obs position
+            kp = np.flatnonzero(plan.known_pts)
+            dev["known_pt"] = t(kp, torch.long)
+            dev["known_obs"] = t(plan.obs_pos[kp], torch.long)
     plan.cache[key] = dev
     return dev
 
@@ -80,16 +86,22 @@ def _prepare_pack(dev, z):
                 nan_ord=isnan[dev["ord_z"]], zv=zv)
 
 
-def _mf_denominator(dev, col, z1L, zord, nug_ord):
-    """(logdet W, z2^T W^{-1} z2): D adds 1/nugget at observed vertices and
-    the RHS adds -zord/nugget there (the observation column)."""
+def mf_inputs(dev, col, zord, nug_ord):
+    """(u_elem, dvec, rhs_vert) of the factor of W = U_y U_y^T + D: D adds
+    1/nugget at observed vertices and the RHS adds -zord/nugget there (the
+    observation column)."""
     vo = dev["vert_obs"]
     obs_v = vo >= 0
     voc = vo.clamp(min=0)
     nug_v = torch.where(obs_v, nug_ord[voc], 1.0)
     dvec = torch.where(obs_v, 1.0 / nug_v, 0.0)
     rhs_vert = torch.where(obs_v, -zord[voc] / nug_v, 0.0)
-    u_elem = torch.where(dev["cond"], col, 0.0)
+    return torch.where(dev["cond"], col, 0.0), dvec, rhs_vert
+
+
+def _mf_denominator(dev, col, z1L, zord, nug_ord):
+    """(logdet W, z2^T W^{-1} z2)."""
+    u_elem, dvec, rhs_vert = mf_inputs(dev, col, zord, nug_ord)
     return mf_factor(dev["mf"], u_elem, dvec, z1L, rhs_vert)
 
 

@@ -22,6 +22,14 @@ backward walks the levels root -> leaf:
 writing each child's Schur-block cotangent into that child's saved front
 (its [P:, P:] block, which the backward does not otherwise read), so no
 separate child cotangent is allocated.
+
+For the posterior, ``mf_factor_keep`` runs the same forward without
+gradients and returns the factored fronts as an ``MFFactor``; on it
+``mf_forward`` / ``mf_backward`` / ``mf_solve`` solve with W and
+``mf_selinv_diag`` gives diag(W^{-1}) by the top-down selected inverse
+(the JAX package's functions of those names, XLA there: here plain torch
+triangular solves, batched products and gathers).  They read only the lower
+triangles of the fronts: H4 never writes the upper ones.
 """
 
 from __future__ import annotations
@@ -34,19 +42,33 @@ from torch.autograd.function import once_differentiable
 from .frontal import (extend_add, extend_add_bwd, front_factor,
                       front_factor_vjp, leaf_assemble, leaf_assemble_bwd)
 
-__all__ = ["mf_device_arrays", "mf_factor"]
+__all__ = ["MFFactor", "mf_device_arrays", "mf_factor", "mf_factor_keep",
+           "mf_forward", "mf_backward", "mf_solve", "mf_selinv_diag"]
+
+
+class MFLevels(list):
+    """Per-level index tensors of an ``MFPlan`` (root first, leaf last) and
+    the plan's flat x layout: ``x_size`` slots, ``x_slot`` (n_vert,) the
+    slot of each vertex, each level's first slot as its ``x_off``."""
+
+    def __init__(self, levels, n_vert, x_size, x_slot):
+        super().__init__(levels)
+        self.n_vert, self.x_size, self.x_slot = n_vert, x_size, x_slot
 
 
 def mf_device_arrays(mf, device):
-    """Per-level index tensors of an ``MFPlan`` (leaf last)."""
+    """Per-level index tensors of an ``MFPlan`` (an ``MFLevels``)."""
     levels = []
     D = mf.depth
     for d, lv in enumerate(mf.levels):
         P, B = lv.npiv, lv.nbord
         F1 = P + B + 1
         N = lv.piv_ids.shape[0]
-        entry = dict(P=P, B=B, F1=F1,
+        entry = dict(P=P, B=B, F1=F1, x_off=int(mf.x_offsets[d]),
                      piv_ids=torch.as_tensor(lv.piv_ids).long().to(device))
+        if d > 0:
+            entry["bip"] = torch.as_tensor(lv.bord_in_parent).long().to(device)
+            entry["bxs"] = torch.as_tensor(lv.bord_x_slot).long().to(device)
         if d < D:
             Bc1 = mf.levels[d + 1].nbord + 1
             ext_aug = np.full((N, 2, F1), -1, np.int32)
@@ -57,7 +79,8 @@ def mf_device_arrays(mf, device):
             entry["elem_pt"] = torch.as_tensor(lv.elem_pt).long().to(device)
             entry["elem_pos"] = torch.as_tensor(lv.elem_pos).to(device)
         levels.append(entry)
-    return levels
+    return MFLevels(levels, mf.n_vert, mf.x_size,
+                    torch.as_tensor(mf.x_slot).long().to(device))
 
 
 def _piv_vec(piv_ids, vec, fill, F1):
@@ -213,3 +236,209 @@ def mf_factor(levels, u_elem, dvec, rhs_elem, rhs_vert):
     Padded pivots get 1.0 on the diagonal and factor as exact 1s.
     """
     return _MFFactor.apply(levels, u_elem, dvec, rhs_elem, rhs_vert)
+
+
+# ------------------------------------------------------- the posterior ----
+
+class MFFactor:
+    """A kept multifrontal factor of W (what the JAX package's ``fac`` dict
+    holds): ``logdet`` = log det W, ``quad`` = b^T W^{-1} b, and each level's
+    factored front (N, F1, F1), whose lower triangle holds L_pp in
+    [:P, :P], L_bp in [P:F1-1, :P] and y = L_pp^{-1} b in row F1-1.  The
+    upper triangles are unspecified (H4 never writes them), so the
+    accessors and every solve read lower triangles only."""
+
+    def __init__(self, levels, fronts, logdet, quad):
+        self.levels, self.fronts = levels, fronts
+        self.logdet, self.quad = logdet, quad
+
+    @property
+    def dtype(self):
+        return self.fronts[0].dtype
+
+    @property
+    def device(self):
+        return self.fronts[0].device
+
+    @property
+    def n_vert(self):
+        return self.levels.n_vert
+
+    def _lpp(self, d):
+        """Level d's L_pp as a view of its fronts (upper triangle unset)."""
+        P = self.levels[d]["P"]
+        return self.fronts[d][:, :P, :P]
+
+    def L_pp(self, d):
+        return torch.tril(self._lpp(d))
+
+    def L_bp(self, d):
+        lv = self.levels[d]
+        return self.fronts[d][:, lv["P"]:lv["F1"] - 1, :lv["P"]]
+
+    def y(self, d):
+        lv = self.levels[d]
+        return self.fronts[d][:, lv["F1"] - 1, :lv["P"]]
+
+
+def mf_factor_keep(levels, u_elem, dvec, rhs_elem, rhs_vert):
+    """``mf_factor``'s forward, not differentiable, returning the factor
+    (an ``MFFactor``) for the solves and the selected inverse below."""
+    with torch.no_grad():
+        logdet, quad, fronts = _forward(levels, u_elem, dvec, rhs_elem,
+                                        rhs_vert, keep=True)
+    return MFFactor(levels, fronts, logdet, quad)
+
+
+def mf_forward(fac, rhs_vert):
+    """Forward solve L y = b for a fresh RHS b = rhs_vert over the vertices,
+    (n_vert,) or (n_vert, k), with a kept factor.  Returns (ys, quad): the
+    per-level pivot solutions (N, P) (or (N, P, k)) and ||y||^2."""
+    levels = fac.levels
+    rhs = rhs_vert.to(fac.device, fac.dtype)
+    vec = rhs.dim() == 1
+    rhs = rhs[:, None] if vec else rhs
+    k = rhs.shape[1]
+    ys = [None] * len(levels)
+    quad = rhs.new_zeros(())
+    bupd = None
+    for d in range(len(levels) - 1, -1, -1):
+        lv = levels[d]
+        P, F = lv["P"], lv["F1"] - 1
+        piv = lv["piv_ids"]
+        N = piv.shape[0]
+        b = rhs.new_zeros(N, F, k)
+        b[:, :P] = torch.where((piv >= 0)[..., None], rhs[piv.clamp(min=0)],
+                               0.0)
+        if bupd is not None and bupd.shape[1] > 0:
+            # extend-add the children's border vectors (``_extend_add_vec``)
+            bc = bupd.unflatten(0, (N, 2))
+            for s in (0, 1):
+                g = lv["ext_aug"][:, s, :F].long()
+                vb = torch.gather(bc[:, s], 1,
+                                  g.clamp(min=0)[..., None].expand(-1, -1, k))
+                b += torch.where((g >= 0)[..., None], vb, 0.0)
+        y = torch.linalg.solve_triangular(fac._lpp(d), b[:, :P], upper=False)
+        ys[d] = y[..., 0] if vec else y
+        quad = quad + torch.sum(y * y)
+        bupd = b[:, P:] - fac.L_bp(d) @ y
+    return ys, quad
+
+
+def mf_backward(fac, ys=None):
+    """Back-substitution L^T x = y, root -> leaf; x over the vertices.
+    ``ys`` defaults to the factor's own y (x = W^{-1} b)."""
+    levels = fac.levels
+    if ys is None:
+        ys = [fac.y(d)[..., None] for d in range(len(levels))]
+        vec = True
+    else:
+        vec = ys[0].dim() == 2
+        ys = [y[..., None] for y in ys] if vec else ys
+    k = ys[0].shape[-1]
+    x = ys[0].new_zeros(levels.x_size, k)
+    for d, lv in enumerate(levels):
+        P, F = lv["P"], lv["F1"] - 1
+        if P == 0:
+            continue
+        rhs = ys[d]
+        if d > 0 and F > P:
+            bxs = lv["bxs"]
+            xb = torch.where((bxs >= 0)[..., None], x[bxs.clamp(min=0)], 0.0)
+            rhs = rhs - fac.L_bp(d).mT @ xb
+        xp = torch.linalg.solve_triangular(fac._lpp(d).mT, rhs, upper=True)
+        x[lv["x_off"]:lv["x_off"] + xp.shape[0] * P] = xp.reshape(-1, k)
+    x = x[levels.x_slot]
+    return x[:, 0] if vec else x
+
+
+def mf_solve(fac, rhs_vert):
+    """x = W^{-1} rhs_vert with a kept factor; rhs (n_vert,) or (n_vert, k)."""
+    ys, _ = mf_forward(fac, rhs_vert)
+    return mf_backward(fac, ys)
+
+
+def _tri_inv(L):
+    """L^{-1} of lower-triangular (N, P, P) matrices (upper triangle
+    unread)."""
+    eye = torch.eye(L.shape[-1], dtype=L.dtype, device=L.device)
+    return torch.linalg.solve_triangular(L, eye.expand(L.shape), upper=False)
+
+
+def _sbb_from_parent(S_prev, par, bip):
+    """(N, B, B): the parent's selected-inverse front at the border
+    positions ``bip`` (pads -> 0)."""
+    ok = bip >= 0
+    gc = bip.clamp(min=0)
+    S = S_prev[par[:, None, None], gc[:, :, None], gc[:, None, :]]
+    return torch.where(ok[:, :, None] & ok[:, None, :], S, 0.0)
+
+
+def _leaf_diag(front, P, F, bip, par, S_prev):
+    """Pivot diagonal of the selected inverse of fronts that have no
+    children: diag(L_pp^{-T} L_pp^{-1}) + diag(G^T S_bb G)."""
+    Linv = _tri_inv(front[:, :P, :P])
+    G = front[:, P:F, :P] @ Linv
+    t = _sbb_from_parent(S_prev, par, bip) @ G
+    return torch.sum(Linv * Linv, dim=1) + torch.sum(G * t, dim=1)
+
+
+# bytes of the leaf's (N, F, F) selected-inverse fronts above which the
+# leaf is taken in node chunks (the JAX package's rule)
+_LEAF_CHUNK_BYTES = 400_000_000
+
+
+def mf_selinv_diag(fac, leaf_chunks=None):
+    """diag(W^{-1}) over the vertices by the top-down multifrontal selected
+    inverse (the Takahashi recursion), with G = L_bp L_pp^{-1} and S_bb
+    gathered from the parent's selected-inverse front:
+
+        S_bp = -S_bb G,    S_pp = L_pp^{-T} L_pp^{-1} + G^T S_bb G.
+
+    Exact here (the fronts carry the full fill).  Only the parent's front
+    S is kept alive; the deepest level computes its pivot diagonal alone,
+    in node chunks (``leaf_chunks``, else as many as keep a chunk's
+    (C, F, F) under 400 MB), so no leaf selected-inverse front is built."""
+    levels = fac.levels
+    D = len(levels) - 1
+    n_vert = levels.n_vert
+    diag = fac.fronts[0].new_zeros(n_vert + 1)       # the last slot: pads
+    S_prev = None
+    for d, lv in enumerate(levels):
+        P, F = lv["P"], lv["F1"] - 1
+        front = fac.fronts[d]
+        N = front.shape[0]
+        par = torch.arange(N, device=front.device) // 2
+        if d == D and F > P and d > 0:
+            nchunk = leaf_chunks
+            if nchunk is None:
+                nchunk = 1
+                while (N * F * F * front.element_size() // nchunk
+                       > _LEAF_CHUNK_BYTES and nchunk < N):
+                    nchunk *= 2
+            step = -(-N // nchunk)
+            dg = torch.cat([
+                _leaf_diag(front[s:s + step], P, F, lv["bip"][s:s + step],
+                           par[s:s + step], S_prev)
+                for s in range(0, N, step)])
+        else:
+            # the level's selected-inverse front, written block by block
+            Linv = _tri_inv(front[:, :P, :P])
+            S = front.new_empty(N, F, F)
+            S_pp = S[:, :P, :P]
+            S_pp.copy_(Linv.mT @ Linv)
+            if F > P:
+                S_bb, S_bp = S[:, P:, P:], S[:, P:, :P]
+                S_bb.copy_(_sbb_from_parent(S_prev, par, lv["bip"]))
+                G = front[:, P:F, :P] @ Linv
+                S_bp.copy_(S_bb @ G).neg_()
+                S_pp -= G.mT @ S_bp
+                S[:, :P, P:] = S_bp.mT
+                del G
+            del Linv
+            dg = torch.diagonal(S_pp, 0, 1, 2)
+            S_prev = S
+        piv = lv["piv_ids"]
+        diag.index_put_((torch.where(piv >= 0, piv, n_vert).reshape(-1),),
+                        dg.reshape(-1))
+    return diag[:n_vert]

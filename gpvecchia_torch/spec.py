@@ -247,8 +247,16 @@ def vecchia_specify(locs, m=-1, ordering=None, cond_yz=None, locs_pred=None,
     first_pred = n  # ordered index of first prediction point (obspred layouts)
 
     # ---- latent (y) vs response (z) conditioning ----
+    # In the general prediction ordering the prediction points are spread
+    # over the sequence, so the index rule below (points from n on are
+    # prediction points) does not find them: there every unobserved
+    # neighbor is conditioned on through its latent afterwards (the JAX
+    # package keeps the index rule and its plan then refuses the spec).
+    general_pred = has_pred and ordering_pred == "general"
     if cond_yz == "SGV":
-        cond = which_cond_on_latent(NNarray, firstind_pred=first_pred if has_pred else None)
+        cond = which_cond_on_latent(
+            NNarray, firstind_pred=first_pred if has_pred and not general_pred
+            else None)
     elif cond_yz == "SGVT":
         cond_obs = which_cond_on_latent(NNarray[:n])
         cond = np.vstack([cond_obs, np.ones((n_locs - n, NNarray.shape[1]), bool)])
@@ -268,6 +276,8 @@ def vecchia_specify(locs, m=-1, ordering=None, cond_yz=None, locs_pred=None,
                            conditioning, has_pred)
     else:
         raise ValueError(f"cond_yz='{cond_yz}' not defined")
+    if general_pred:
+        cond |= valid & ~obs[np.where(valid, NNarray, 0)]
 
     return VecchiaSpec(
         locsord=locsord, NNarray=NNarray, cond_latent=cond & valid,
