@@ -97,9 +97,26 @@ Builds the host library and the CUDA kernels from this checkout, then
    and once in f64 (reported), and f64 on the card against the CPU plain
    path on an SGV spec of the first VL_CHECK_N points.
    The launch counters of H1-H4 are reset just before each run of phases
-   6 and 7 on a spec and must be positive after it.
+   6 and 7 on a spec and must be positive after it;
+8. MRA phase: ``vecchia_specify(conditioning="mra")`` at the run's n and m
+   (bench.py cfg5) with its seconds split into the maxmin ordering, the
+   native knot tree and the rest, the plan's shape (eff_m, depth, leaf F1,
+   root P), ``mra_eval_ms`` (f32, median of 3, H1-H4 counted), value+grad
+   in f32 (H1-H7 counted), rows dropped and peaks; f64 on the card against
+   the CPU plain path and f32 against f64 (at n > 1e5 f32 against one f64
+   run on the card); at the default size a 'firstm' spec alike;
+9. selected phase (default size only): the selected (n, m+1) matrix of the
+   MRA spec from ``hv.get_mat_cov`` held against the built-in Matern in
+   value (f64, f32), nugget gradient (f64) and prediction mean; H8 and
+   solve_e0_bwd must launch;
+10. NUTS phase: bench.py cfg5b on the MRA spec (``nuts_transition_ms`` of
+   the second transition with its value+grad count, H1-H7 counted), and at
+   the default size ``fit.mcmc.sample_posterior`` (smoothness sampled: the
+   general H1 and H5; f64) on the card and on the CPU from one seed, the
+   draws held to NUTS_REL.
    --n 1000000 --m 40 runs phases 2-4 and 6 in f32 only (6 holds f32
-   against one f64 run on the card).
+   against one f64 run on the card), and phases 8 and 10 without their
+   default-size parts.
 
 The kernel phase also computes each kernel's bound (the least time the card
 could take: the larger of the bytes its inputs and outputs need over the
@@ -244,6 +261,22 @@ PRED_N_PRED = 10_000     # prediction points of the default size's second spec
 VL_MAX_ITER = 30
 VL_CHECK_N, VL_CHECK_M = 20_000, 20
 VL_F64_REL = 1e-9
+# NUTS (bench.py cfg5b at the run's MRA spec, then sample_posterior on the
+# card and on the CPU plain path): the draws of the two runs, elementwise
+# relative.  Both consume one CPU key stream, so they part only if a
+# log-posterior's rounding (~1e-13 relative between the two in f64) moves
+# an accept or a U-turn decision, or if the adaptation carries it (test
+# side: ~1e-10 after 30 adaptive transitions on a 2-D Gaussian).
+NUTS_REL = 1e-8
+# cfg5b's step 0.05 diverges on its first step at theta0 = 0: the
+# log-likelihood's gradient there grows with n, and half a step of 0.05
+# moves the momentum by thousands.  A second transition takes the step
+# NUTS_ND_STEP / |grad|max (a half step moves the momentum by at most
+# 0.025), so it runs its whole trajectory, as bench.py's program always
+# does (1 + 1 + 2 value+grads at max_depth 2 unless it turns).
+NUTS_ND_STEP = 0.05
+NUTS_N, NUTS_M = 5000, 10
+NUTS_WARMUP, NUTS_SAMPLES, NUTS_CHAINS, NUTS_DEPTH, NUTS_SEED = 4, 2, 2, 3, 0
 
 COVPARMS = (1.0, 0.2, 0.5)
 # A smoothness without closed form.  The range is 0.05, not 0.2: at 0.2
@@ -2496,6 +2529,425 @@ def vl_phase(spec, locs, zb, big, counters):
     return res
 
 
+def _launches(counters):
+    return {k.__name__: k.launches for k in counters}
+
+
+def _require(label, launches):
+    if min(launches.values()) <= 0:
+        raise AssertionError(f"{label}: a kernel of the path never "
+                             f"launched: {launches}")
+
+
+def mra_spec(locs, m, conditioning="mra"):
+    """(spec, seconds): ``vecchia_specify`` with MRA conditioning, its
+    seconds split into the maxmin ordering, the native knot tree
+    (``host.mra_tree``) and the rest (the rows' expansion, the spec's
+    arrays), by timing those two functions where the spec calls them."""
+    import gpvecchia_torch as gt
+    import gpvecchia_torch.spec as S
+    from gpvecchia_torch.csrc import host
+    secs = {"ordering": 0.0, "mra_tree": 0.0}
+    saved = S.order_maxmin_exact, host.mra_tree
+
+    def timed(name, fn):
+        def wrap(*a, **k):
+            t0 = time.perf_counter()
+            try:
+                return fn(*a, **k)
+            finally:
+                secs[name] += time.perf_counter() - t0
+        return wrap
+
+    S.order_maxmin_exact = timed("ordering", saved[0])
+    host.mra_tree = timed("mra_tree", saved[1])
+    try:
+        t0 = time.perf_counter()
+        spec = gt.vecchia_specify(locs, m=m, conditioning=conditioning)
+        total = time.perf_counter() - t0
+    finally:
+        S.order_maxmin_exact, host.mra_tree = saved
+    secs["rest"] = total - secs["ordering"] - secs["mra_tree"]
+    secs["total"] = total
+    return spec, secs
+
+
+def _plan_shape(spec):
+    """(plan, seconds, {eff_m, depth, leaf F1, root P, levels}) of the
+    spec's multifrontal plan."""
+    from gpvecchia_torch.plan import get_mf_plan, get_plan
+    t0 = time.perf_counter()
+    mf, _ = get_mf_plan(get_plan(spec))
+    plan_s = time.perf_counter() - t0
+    leaf = mf.levels[-1]
+    return mf, plan_s, dict(
+        eff_m=spec.m, depth=mf.depth, leaf_fronts=int(leaf.piv_ids.shape[0]),
+        leaf_F1=int(leaf.npiv + leaf.nbord + 1),
+        root_P=int(mf.levels[0].npiv),
+        levels=[(int(lv.piv_ids.shape[0]), int(lv.npiv), int(lv.nbord))
+                for lv in mf.levels])
+
+
+def _hold_value_grad(label, spec, z, big, res):
+    """The f32 value and gradient on the card (``res["grad"]``) against one
+    f64 value+grad on the card: value SLICE_F32_REL relative, gradient
+    GRAD_F32_REL of each group's max (dcovparms; dnugget); and at the
+    default size the f64 one against the CPU plain path: value
+    SLICE_F64_REL relative, gradient GRAD_F64_REL of the reference's
+    |g|max.  The f64 run's device arrays are dropped after it."""
+    import gpvecchia_torch as gt
+    f64 = torch.float64
+    g64 = value_grad(gt.loglik_fn(spec, device="cuda", dtype=f64),
+                     torch.as_tensor(z, dtype=f64, device="cuda"), NUGGET)
+    g32 = res["grad"]
+    r32 = abs(g32[0] - g64[0]) / abs(g64[0])
+    e32 = max(np.abs(g32[i] - g64[i]).max() / np.abs(g64[i]).max()
+              for i in (1, 2))
+    res.update(float64=g64[0], rel_f32_f64=r32, grad_f32_f64=e32)
+    _drop_f64_caches(spec)
+    line = (f"  {label}: cuda f64 loglik {g64[0]!r}, dcovparms {g64[1]}, "
+            f"dnugget {float(g64[2])!r}; f32 vs f64: value {r32:.3e} (tol "
+            f"{SLICE_F32_REL:g}), gradient {e32:.3e} of each group's max "
+            f"(tol {GRAD_F32_REL:g})")
+    ok = r32 <= SLICE_F32_REL and e32 <= GRAD_F32_REL
+    if not big:
+        t0 = time.perf_counter()
+        cpu = value_grad(gt.loglik_fn(spec, device="cpu", dtype=f64),
+                         torch.as_tensor(z, dtype=f64), NUGGET)
+        r64 = abs(g64[0] - cpu[0]) / abs(cpu[0])
+        scale = max(np.abs(cpu[1]).max(), np.abs(cpu[2]).max())
+        e64 = max(np.abs(g64[i] - cpu[i]).max() for i in (1, 2)) / scale
+        res.update(cpu_float64=cpu[0], rel_f64_cpu=r64, grad_f64_cpu=e64)
+        line += (f"; cuda f64 vs cpu f64 value+grad "
+                 f"({time.perf_counter() - t0:.1f} s): value {r64:.3e} (tol "
+                 f"{SLICE_F64_REL:g}), gradient {e64:.3e} of |g|max (tol "
+                 f"{GRAD_F64_REL:g})")
+        ok = ok and r64 <= SLICE_F64_REL and e64 <= GRAD_F64_REL
+    log(line)
+    if not ok:
+        raise AssertionError(f"{label}: the card disagrees with the "
+                             "reference path")
+    res["grad"] = _jsonable(g32)
+
+
+def _plan_kernel_checks(label, mf, dev, seed):
+    """H2 and H7 at the plan's leaf, H3 at each internal level and H4 at
+    each level with pivots, against their plain versions on the card, as
+    for the SGV spec's plan (``leaf_phase``, ``eadd_level_phase``,
+    ``h4_level_phase``).  Returns H3's and H4's f32 times summed over the
+    levels."""
+    log(f"  {label} plan: H2, H7 at its leaf, H3, H4 at its levels against "
+        f"their plain versions:")
+    leaf_phase(mf, seed, dev)
+    _, sums, _ = eadd_level_phase(mf, dev, seed)
+    rows, _ = h4_level_phase([s for s in _level_shapes(mf) if s[2] > 0],
+                             dev, seed)
+    h4 = [r for r in rows if r["dtype"] == "float32"]
+    return dict(extend_add_f32=sums.get("float32"),
+                front_factor_f32=dict(levels=len(h4),
+                                      ms=sum(r["ms"] for r in h4),
+                                      bound_ms=sum(r["bound_ms"]
+                                                   for r in h4)))
+
+
+def mra_phase(locs, z, m, big, counters, bwd_counters, dev, seed):
+    """MRA conditioning at this run's n and m (bench.py cfg5): the spec's
+    seconds split (``mra_spec``), the plan's shape, H2-H4 and H7 at the
+    plan's shapes against their plain versions (``_plan_kernel_checks``),
+    ``mra_eval_ms`` (f32, warm, median of 3 at covparms (1.0 + 0.01k, 0.2,
+    0.5), nugget 0.1, synchronized) with the counts of ``counters``
+    (H1-H4) set to 0 just before the evaluations and read just after,
+    value+grad in f32 (median of 3, rows dropped, peak) with H1-H7 counted
+    alike, and the value and gradient held (``_hold_value_grad``).  At the
+    default size also a 'firstm' spec (every front's border carries the
+    first m knots), checked and held alike.  Returns (spec, results)."""
+    import gpvecchia_torch as gt
+    spec, secs = mra_spec(locs, m)
+    mf, plan_s, shape = _plan_shape(spec)
+    log(f"  spec {secs['total']:.2f} s (maxmin ordering {secs['ordering']:.2f}"
+        f", mra_tree {secs['mra_tree']:.2f}, rest {secs['rest']:.2f}); "
+        f"plan {plan_s:.2f} s; eff_m {shape['eff_m']}, MF depth "
+        f"{shape['depth']}, leaf {shape['leaf_fronts']} fronts of F1 "
+        f"{shape['leaf_F1']}, root P {shape['root_P']}")
+    log(f"  levels (fronts, pivots, border): {shape['levels']}")
+    res = dict(mra_spec_s=secs["total"], spec_split_s=secs, plan_s=plan_s,
+               **shape)
+    res["plan_kernels"] = _plan_kernel_checks("MRA", mf, dev, seed)
+    del mf
+    dt = torch.float32
+    zt = torch.as_tensor(z, dtype=dt, device="cuda")
+    for k in counters + bwd_counters:
+        k.launches = 0
+    torch.cuda.reset_peak_memory_stats()
+    fn = gt.loglik_fn(spec, device="cuda", dtype=dt, with_aux=True)
+    t0 = time.perf_counter()
+    ll, aux = fn(zt, COVPARMS, NUGGET)
+    ll, dropped = float(ll), int(aux["n_dropped_rows"])
+    first_s = time.perf_counter() - t0
+    times = []
+    for k in range(3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        float(fn(zt, (1.0 + 0.01 * k, 0.2, 0.5), NUGGET)[0])
+        times.append((time.perf_counter() - t0) * 1e3)
+    res.update(mra_eval_ms=statistics.median(times), first_s=first_s,
+               float32=ll, dropped_rows=dropped,
+               eval_launches=_launches(counters),
+               eval_peak_bytes=torch.cuda.max_memory_allocated())
+    log(f"  cuda float32: loglik {ll!r}, rows dropped {dropped}; first "
+        f"call {first_s:.2f} s; mra_eval_ms {res['mra_eval_ms']:.2f} "
+        f"(median of 3); launches {res['eval_launches']}; peak "
+        f"{res['eval_peak_bytes'] / 2**30:.3f} GiB")
+    _require("MRA evaluation", res["eval_launches"])
+    for k in counters + bwd_counters:
+        k.launches = 0
+    torch.cuda.reset_peak_memory_stats()
+    fng = gt.loglik_fn(spec, device="cuda", dtype=dt)
+    first = value_grad(fng, zt, NUGGET)
+    times = []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = value_grad(fng, zt, NUGGET)
+        times.append((time.perf_counter() - t0) * 1e3)
+    if not (np.isfinite(out[0]) and np.all(np.isfinite(out[1]))
+            and np.isfinite(float(out[2]))):
+        raise AssertionError("MRA: value or gradient not finite")
+    res.update(value_grad_ms=statistics.median(times), grad=first,
+               vg_launches=_launches(counters + bwd_counters),
+               vg_peak_bytes=torch.cuda.max_memory_allocated())
+    log(f"  cuda float32 value+grad: dcovparms {first[1]}, dnugget "
+        f"{float(first[2])!r}; {res['value_grad_ms']:.2f} ms (median of 3); "
+        f"launches {res['vg_launches']}; peak "
+        f"{res['vg_peak_bytes'] / 2**30:.3f} GiB")
+    _require("MRA value+grad", res["vg_launches"])
+    _hold_value_grad("MRA", spec, z, big, res)
+    if not big:
+        fspec, fsecs = mra_spec(locs, m, "firstm")
+        fmf, fplan_s, fshape = _plan_shape(fspec)
+        log(f"  firstm: spec {fsecs['total']:.2f} s, plan {fplan_s:.2f} s; "
+            f"levels (fronts, pivots, border): {fshape['levels']}")
+        fres = dict(spec_s=fsecs["total"], plan_s=fplan_s, **fshape)
+        fres["plan_kernels"] = _plan_kernel_checks("firstm", fmf, dev, seed)
+        del fmf
+        for k in counters + bwd_counters:
+            k.launches = 0
+        fres["grad"] = value_grad(gt.loglik_fn(fspec, device="cuda",
+                                               dtype=dt),
+                                  zt, NUGGET)
+        fres["float32"] = fres["grad"][0]
+        fres["launches"] = _launches(counters + bwd_counters)
+        log(f"  firstm cuda float32: loglik {fres['float32']!r}, dcovparms "
+            f"{fres['grad'][1]}, dnugget {float(fres['grad'][2])!r}; "
+            f"launches {fres['launches']}")
+        _hold_value_grad("firstm", fspec, z, big, fres)
+        res["firstm"] = fres
+        del fspec
+    return spec, res
+
+
+def _exp_np(d):
+    """The Matern at smoothness 0.5 and COVPARMS as a numpy function of
+    distance, for ``get_mat_cov``."""
+    return COVPARMS[0] * np.exp(-d / COVPARMS[1])
+
+
+def selected_phase(spec, z, packed):
+    """The selected (n, m+1) layout on the MRA spec (default size only): the
+    matrix from ``get_mat_cov(spec, _exp_np)`` and the packed pair slots
+    ((n, P) int32, ``sel_pair_slots_packed``) timed, then the likelihood
+    held against
+    ``covmodel="matern"`` at COVPARMS in f64 (CROSS_REL) and f32
+    (SLICE_F32_REL), its nugget gradient in f64 (GRAD_F64_REL), and the
+    prediction mean alike (PRED_F64_REL, PRED_F32_REL of its max).  The
+    counts of ``packed`` (H8, solve_e0_bwd) are set to 0 first and must be
+    positive after."""
+    import gpvecchia_torch as gt
+    from gpvecchia_torch.hv import get_mat_cov
+    from gpvecchia_torch.plan import sel_pair_slots_packed
+    t0 = time.perf_counter()
+    sel = get_mat_cov(spec, _exp_np)
+    mat_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    slots = sel_pair_slots_packed(spec)
+    res = dict(get_mat_cov_s=mat_s, pair_slots_s=time.perf_counter() - t0,
+               pair_slots_bytes=slots.nbytes)
+    log(f"  get_mat_cov {mat_s:.2f} s; packed pair slots "
+        f"{res['pair_slots_s']:.2f} s, {slots.nbytes / 2**20:.1f} MiB")
+    del slots
+    for k in packed:
+        k.launches = 0
+    ok = True
+    for dt, tol, ptol in ((torch.float64, CROSS_REL, PRED_F64_REL),
+                          (torch.float32, SLICE_F32_REL, PRED_F32_REL)):
+        name = str(dt).split(".")[-1]
+        zt = torch.as_tensor(z, dtype=dt, device="cuda")
+        fs = gt.loglik_fn(spec, sel, device="cuda", dtype=dt)
+        fm = gt.loglik_fn(spec, device="cuda", dtype=dt)
+        a = float(fs(zt, (), NUGGET))
+        times = []
+        for _ in range(3):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            float(fs(zt, (), NUGGET))
+            times.append((time.perf_counter() - t0) * 1e3)
+        b = float(fm(zt, COVPARMS, NUGGET))
+        mu = [gt.vecchia_prediction(z, spec, cp, NUGGET, covmodel=cm,
+                                    return_values="mean", device="cuda",
+                                    dtype=dt)["mu_obs"]
+              for cm, cp in ((sel, ()), ("matern", COVPARMS))]
+        r = dict(loglik=a, matern=b, rel=abs(a - b) / abs(b),
+                 eval_ms=statistics.median(times),
+                 mean_rel=float(np.abs(mu[0] - mu[1]).max()
+                                / np.abs(mu[1]).max()))
+        line = (f"  cuda {name}: selected {a!r} vs matern {b!r}: rel "
+                f"{r['rel']:.3e} (tol {tol:g}); eval {r['eval_ms']:.2f} ms "
+                f"(median of 3); prediction mean {r['mean_rel']:.3e} of its "
+                f"max (tol {ptol:g})")
+        ok = ok and r["rel"] <= tol and r["mean_rel"] <= ptol
+        if dt == torch.float64:
+            dg = []
+            for fn, cp in ((fs, ()), (fm, COVPARMS)):
+                g = torch.tensor(NUGGET, dtype=torch.float64,
+                                 requires_grad=True)
+                ll = fn(zt, torch.tensor(cp, dtype=torch.float64), g)
+                dg.append(float(torch.autograd.grad(ll, g)[0]))
+            r.update(dnugget=dg[0], dnugget_matern=dg[1],
+                     dnugget_rel=abs(dg[0] - dg[1]) / abs(dg[1]))
+            line += (f"; dnugget {dg[0]!r} vs {dg[1]!r}: rel "
+                     f"{r['dnugget_rel']:.3e} (tol {GRAD_F64_REL:g})")
+            ok = ok and r["dnugget_rel"] <= GRAD_F64_REL
+        res[name] = r
+        log(line)
+    res["launches"] = _launches(packed)
+    log(f"  launches: {res['launches']}")
+    _require("selected layout", res["launches"])
+    if not ok:
+        raise AssertionError("selected layout: disagrees with the built-in "
+                             "Matern")
+    return res
+
+
+def _cfg5b_vg(spec, z):
+    """(vg, calls): bench.py cfg5b's log posterior on the card in f32 -- the
+    log-likelihood at covparms (exp(lg0), exp(lg1), 0.5) and nugget 0.1,
+    no prior -- and its gradient, numpy float64 on the host."""
+    import gpvecchia_torch as gt
+    fn = gt.loglik_fn(spec, device="cuda", dtype=torch.float32)
+    zt = torch.as_tensor(z, dtype=torch.float32, device="cuda")
+    nu = torch.tensor([0.5], dtype=torch.float64)
+    calls = [0]
+
+    def vg(lg):
+        calls[0] += 1
+        lgt = torch.tensor(lg, dtype=torch.float64, requires_grad=True)
+        ll = fn(zt, torch.cat([torch.exp(lgt), nu]), NUGGET)
+        (g,) = torch.autograd.grad(ll, lgt)
+        return float(ll.detach()), g.numpy()
+
+    return vg, calls
+
+
+def nuts_phase(spec_m, locs, z, big, counters, gen_counters):
+    """(a) bench.py cfg5b on the MRA spec: one NUTS transition (max_depth 2,
+    step 0.05, unit inverse mass, theta0 = 0, smoothness 0.5 fixed, nugget
+    0.1, f32), once warm and once timed (``nuts_transition_ms``), then one
+    with the step NUTS_ND_STEP / |grad log p(theta0)|max, which does not
+    diverge (``nuts_full_transition_ms``): each with its value+grads, how
+    its trajectory ended, and the counts of ``counters`` (H1-H7) set to 0
+    just before it and read just after.  (b) at the default size,
+    ``sample_posterior`` on an MRA spec of the first NUTS_N points, m =
+    NUTS_M (smoothness sampled: the general H1 and H5, ``gen_counters``),
+    f64, on the card and on the CPU plain path from one seed: the draws
+    must agree to NUTS_REL relative."""
+    import gpvecchia_torch as gt
+    from gpvecchia_torch.fit import mcmc as TM
+    rng = TM.TorchKeys()
+    vg, calls = _cfg5b_vg(spec_m, z)
+    th0 = np.zeros(2)
+    depth = 2
+
+    def timed(key, eps):
+        for k in counters:
+            k.launches = 0
+        calls[0], info = 0, {}
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        th1, astat = TM._nuts_transition(vg, rng, rng.key(key), th0, eps,
+                                         np.ones(2), depth, info=info)
+        ms = (time.perf_counter() - t0) * 1e3
+        if not (np.all(np.isfinite(th1)) and np.isfinite(astat)):
+            raise AssertionError("cfg5b: theta or accept statistic not "
+                                 "finite")
+        return dict(ms=ms, value_grads=calls[0], step_size=eps,
+                    theta=th1.tolist(), accept_stat=float(astat), **info,
+                    launches=_launches(counters))
+
+    timed(0, 0.05)                      # warm-up
+    div = timed(1, 0.05)
+    full = timed(1, NUTS_ND_STEP / np.abs(vg(th0)[1]).max())
+    res = dict(nuts_transition_ms=div["ms"], value_grads=div["value_grads"],
+               nuts_full_transition_ms=full["ms"], divergent=div,
+               full=full)
+    for name, r in (("as bench.py", div), ("at the small step", full)):
+        end = ("diverged" if r["diverged"] else "turned" if r["turned"]
+               else f"ran all {depth} doublings")
+        log(f"  cfg5b {name}, step {r['step_size']:.6g}: {r['ms']:.2f} ms, "
+            f"{r['value_grads']} value+grads ({r['ms'] / r['value_grads']:.2f}"
+            f" ms each), {r['depth']} doubling(s), {end}; theta "
+            f"{r['theta']}, accept stat {r['accept_stat']:.6f}; launches "
+            f"{r['launches']}")
+        _require(f"cfg5b {name}", r["launches"])
+    if full["diverged"]:
+        raise AssertionError("cfg5b: the transition at the small step "
+                             "diverged")
+    if big:
+        return res
+    nb = min(NUTS_N, len(z))
+    spec = gt.vecchia_specify(locs[:nb], m=NUTS_M, conditioning="mra")
+    kw = dict(num_warmup=NUTS_WARMUP, num_samples=NUTS_SAMPLES,
+              num_chains=NUTS_CHAINS, seed=NUTS_SEED, max_depth=NUTS_DEPTH)
+    for k in gen_counters:
+        k.launches = 0
+    out, secs = {}, {}
+    for dev in ("cuda", "cpu"):
+        t0 = time.perf_counter()
+        out[dev] = TM.sample_posterior(spec, z[:nb], device=dev, **kw)
+        secs[dev] = time.perf_counter() - t0
+        if dev == "cuda":
+            launches = _launches(gen_counters)
+    a, b = out["cuda"]["samples"], out["cpu"]["samples"]
+    rel = np.abs(a - b) / np.abs(b)
+    res["posterior"] = dict(n=nb, m=NUTS_M, **kw, cuda_s=secs["cuda"],
+                            cpu_s=secs["cpu"], launches=launches,
+                            rel=float(rel.max()),
+                            step_size=out["cuda"]["step_size"].tolist(),
+                            accept=float(out["cuda"]["accept_stats"].mean()))
+    log(f"  sample_posterior n={nb}, m={NUTS_M}, f64, {kw}: cuda "
+        f"{secs['cuda']:.1f} s, cpu {secs['cpu']:.1f} s; draws cuda vs cpu "
+        f"{rel.max():.3e} relative (tol {NUTS_REL:g}); step sizes "
+        f"{res['posterior']['step_size']}; launches {launches}")
+    _require("sample_posterior", launches)
+    if not rel.max() <= NUTS_REL:
+        c, d = np.unravel_index(np.argmax(~(rel <= NUTS_REL)), rel.shape)
+        vgs = {dev: TM.logpost_value_grad(
+            spec, z[:nb], dim=a.shape[2], device=dev)
+            for dev in ("cuda", "cpu")}
+        start = (out["cpu"]["samples_log"][c, d - 1] if d else None)
+        gap = (abs(vgs["cuda"](start)[0] - vgs["cpu"](start)[0])
+               if start is not None else float("nan"))
+        log(f"  the chains part at chain {c}, draw {d}: cuda "
+            f"{out['cuda']['samples_log'][c, d]}, cpu "
+            f"{out['cpu']['samples_log'][c, d]}, accept stats "
+            f"{out['cuda']['accept_stats'][c, d]!r} / "
+            f"{out['cpu']['accept_stats'][c, d]!r}; the log-likelihood's "
+            f"card-vs-CPU gap at the transition's start {gap:.3e}, which "
+            "bounds the margin of the decision that parted them")
+        raise AssertionError("sample_posterior: the card's chains disagree "
+                             "with the CPU's")
+    return res
+
+
 def _jsonable(r, summary=False):
     """(loglik, dcovparms, dnuggets) as JSON values; ``summary`` keeps only
     the largest |dnuggets| of a vector."""
@@ -2714,6 +3166,18 @@ def main():
     log("Vecchia-Laplace phase (logistic):")
     vl = vl_phase(spec, locs, zb, big, counters)
 
+    log("MRA phase (bench.py cfg5):")
+    spec_m, mra = mra_phase(locs, z, args.m, big, counters, bwd_counters,
+                            dev, args.seed)
+    sel = None
+    if not big:
+        log("selected-layout phase (MRA spec):")
+        sel = selected_phase(spec_m, z, (MS.solve_e0, MS.solve_e0_bwd))
+    log("NUTS phase (bench.py cfg5b, sample_posterior):")
+    nuts = nuts_phase(spec_m, locs, z, big, counters + bwd_counters,
+                      gen_counters)
+    del spec_m
+
     if args.profile:
         profile_eval(spec, z, grad=False)
         profile_eval(spec, z, grad=True)
@@ -2775,10 +3239,14 @@ def main():
         pred_mean_ms=pred["spec"]["float32"]["pred_mean_ms"],
         pred_selinv_ms=pred["spec"]["float32"]["pred_selinv_ms"],
         **{k: vl[k] for k in ("vl_nr_ms", "vl_iters", "vl_iter_ms",
-                              "vl_cnvgd")})
-    log(f"posterior (f32, bench.py's names): {bench_names}")
+                              "vl_cnvgd")},
+        mra_spec_s=mra["mra_spec_s"], mra_eval_ms=mra["mra_eval_ms"],
+        nuts_transition_ms=nuts["nuts_transition_ms"],
+        nuts_full_transition_ms=nuts["nuts_full_transition_ms"])
+    log(f"posterior, MRA and NUTS (f32, bench.py's names): {bench_names}")
     print(json.dumps({"slice": res, "grad": grad_json, "general": gen_json,
                       "estimate": est, "prediction": pred, "vl": vl,
+                      "mra": mra, "selected": sel, "nuts": nuts,
                       **bench_names, "n": args.n, "m": args.m,
                       "spec_s": spec_s, "plan_s": plan_s,
                       "peak_bytes": peak, "grad_peak_bytes": grad_peak,

@@ -2,12 +2,15 @@
 
 A port of the JAX package ``gpvecchia_tpu`` (which stays as the reference)
 to PyTorch with hand-written CUDA kernels for NVIDIA Hopper.  It covers the
-host spec and plan; in the multifrontal 'chol' mode (cond_yz y/z/SGV/SGVT,
-without prediction points or with ``ordering_pred="general"``) the
-Gaussian log-likelihood and its gradient in the covariance parameters and
-nuggets, for the covariances the JAX package takes (Matern at any
-smoothness, esqe, user callables, a full covariance matrix); Vecchia MLE
-(``vecchia_estimate``); posterior prediction through the kept
+host spec and plan, with MRA and 'firstm' conditioning; in the
+multifrontal 'chol' mode (cond_yz y/z/SGV/SGVT, without prediction points
+or with ``ordering_pred="general"``) the Gaussian log-likelihood and its
+gradient in the covariance parameters and nuggets, for the covariances the
+JAX package takes (Matern at any smoothness, esqe, user callables, a full
+covariance matrix, and the selected (n_all, m+1) layout of
+``hv.get_mat_cov``); Vecchia MLE (``vecchia_estimate``); adaptive HMC/NUTS
+over the covariance parameters (``fit.mcmc.sample_posterior``); posterior
+prediction through the kept
 multifrontal factor (``vecchia_prediction``: means, selected-inverse
 variances; ``inference.prediction.vecchia_lincomb`` and ``V2covmat``); and
 Vecchia–Laplace for non-Gaussian data (``calculate_posterior_VL``,

@@ -1,4 +1,5 @@
-"""Native host ops (ordering, neighbor search, SGV selection) via ctypes.
+"""Native host ops (ordering, neighbor search, SGV selection, the MRA knot
+tree) via ctypes.
 
 The C++ source is the port's own ``hostops.cpp`` beside this module, a
 byte-identical copy of the JAX package's ``gpvecchia_tpu/csrc/hostops.cpp``
@@ -79,7 +80,10 @@ def get_lib():
                                    ctypes.c_int, i64p]
         lib.sgv_select.argtypes = [i64p, ctypes.c_int64, ctypes.c_int,
                                    ctypes.c_int64, u8p]
-        for fn in (lib.maxmin_exact, lib.ordered_nn, lib.sgv_select):
+        lib.mra_tree.argtypes = [f64p, ctypes.c_int64, ctypes.c_int, i64p,
+                                 i64p, ctypes.c_int64, i64p, i64p, i64p]
+        for fn in (lib.maxmin_exact, lib.ordered_nn, lib.sgv_select,
+                   lib.mra_tree):
             fn.restype = None
         _lib = lib
         return _lib
@@ -122,3 +126,27 @@ def sgv_select(NN: np.ndarray, first_pred: int) -> np.ndarray | None:
     cond = np.empty((n, mp1), dtype=np.uint8)
     lib.sgv_select(NN, n, mp1, first_pred, cond)
     return cond.astype(bool)
+
+
+def mra_tree(locsord: np.ndarray, J, M: int, r):
+    """Native MRA knot-tree chains; None if the library is unavailable.
+
+    Returns (chain_next, chain_len, {"M": eff_M, "r": eff_r}), matching the
+    Python BFS of ``geometry/mra.py`` (GPvecchia src/fastTree.cpp:272-297).
+    """
+    lib = get_lib()
+    if lib is None:
+        return None
+    locs = np.ascontiguousarray(locsord, dtype=np.float64)
+    n, d = locs.shape
+    J = np.ascontiguousarray(J, dtype=np.int64)
+    r = np.ascontiguousarray(r, dtype=np.int64)
+    chain_next = np.empty(n, dtype=np.int64)
+    chain_len = np.empty(n, dtype=np.int64)
+    eff = np.empty(M + 4, dtype=np.int64)
+    lib.mra_tree(locs, n, d, J, r, M, chain_next, chain_len, eff)
+    eff_M, finest_count, finest_total = int(eff[0]), int(eff[1]), int(eff[2])
+    eff_r = eff[3:3 + M + 1].tolist()
+    if finest_count > 0:
+        eff_r[M] = finest_total // finest_count
+    return chain_next, chain_len, {"M": eff_M, "r": eff_r}

@@ -159,7 +159,7 @@ def _vl_posterior_fn(spec, model, covmodel, obs_mask, device, dtype):
     ``device`` but the Python numbers delta, iters and bad."""
     plan = get_plan(spec)
     _check_mf(plan, "Vecchia-Laplace")
-    kernel_fn, covmat = _dispatch_covmodel(spec, covmodel, device, dtype)
+    cov = _dispatch_covmodel(spec, covmodel, device, dtype)
     dev = _device_arrays(plan, device, dtype)
     obs_mask_t = torch.as_tensor(obs_mask, device=device)
     obs_idx = torch.as_tensor(np.flatnonzero(obs_mask), device=device)
@@ -170,7 +170,7 @@ def _vl_posterior_fn(spec, model, covmodel, obs_mask, device, dtype):
 
     def mu_obs_from(p_full, nug_full, covparms):
         mu_ord, _ = _posterior_core(plan, dev, p_full, covparms, nug_full,
-                                    kernel_fn, covmat)
+                                    cov)
         mu = mu_ord.new_zeros(n_locs).index_put((ord_t,), mu_ord)
         return mu[:n_obs_locs]
 

@@ -11,8 +11,10 @@ family, IC0) raise ``NotImplementedError``.
 The covariance model is any the JAX package takes (``_dispatch_covmodel``):
 'matern' (closed-form smoothness on H1, any other on the packed path and
 H8), 'esqe', a user callable of torch tensors over distances or location
-pairs, or a full (n_all, n_all) covariance matrix over the ordered points.
-The selected (n_all, m+1) matrix layout raises ``NotImplementedError``.
+pairs, a full (n_all, n_all) covariance matrix over the ordered points, or
+the selected (n_all, m+1) layout aligned with NNarray (``hv.get_mat_cov``;
+hierarchical conditioning such as MRA), gathered through
+``plan.sel_pair_slots_packed`` onto the packed path and H8.
 
 The entry points run on the card (``device="cuda"``) unless the caller asks
 for another device; without a visible CUDA device they raise.
@@ -31,7 +33,7 @@ import torch
 from ..kernels.covariance import make_kernel_fn
 from ..kernels.u_entries import u_entries
 from ..linalg.multifrontal import mf_device_arrays, mf_factor
-from ..plan import get_mf_plan, get_plan
+from ..plan import get_mf_plan, get_plan, sel_pair_slots_packed
 
 __all__ = ["vecchia_likelihood", "loglik_fn", "zero_nugget_variant"]
 
@@ -106,7 +108,7 @@ def _mf_denominator(dev, col, z1L, zord, nug_ord):
 
 
 def _loglik_core(plan, dev, pack, covparms, nuggets, dtype, device,
-                 kernel_fn=None, covmat=None):
+                 cov=(None, None, None)):
     if not torch.is_tensor(covparms):
         covparms = torch.as_tensor(np.array(covparms, dtype=np.float64))
     covparms = covparms.to(dtype)
@@ -125,7 +127,7 @@ def _loglik_core(plan, dev, pack, covparms, nuggets, dtype, device,
     nug_point = nug_point.index_put((dev["obs_points"],), nug_ord)
 
     col, bad = u_entries(dev["locs"], dev["NN"], dev["valid"], dev["cond"],
-                         nug_point, covparms, kernel_fn, covmat)
+                         nug_point, covparms, *cov)
 
     # z1 over U columns: regression columns gather the values of their
     # known-conditioned neighbors (response-conditioned, or exact latents)
@@ -195,7 +197,8 @@ def _check_supported(plan):
         raise NotImplementedError(
             f"likelihood mode {plan.mode!r} (ic0={plan.ic0}): only the "
             "multifrontal 'chol' mode is ported to gpvecchia_torch (obspred, "
-            "the zy family and IC0: ROADMAP queue 1, per-entry V path)")
+            "the zy family and IC0: ROADMAP queue 1, item 6, the per-entry V "
+            "path)")
 
 
 def resolve_device(device) -> torch.device:
@@ -219,20 +222,27 @@ def _as_array(covmodel) -> np.ndarray:
     return np.asarray(covmodel, np.float64)
 
 
+def _sel_slots(spec, device):
+    """The selected layout's pair slots, packed like ``build_cov_packed``'s
+    rows: (n_all, P) int32 on ``device`` (cached on the spec)."""
+    return spec.cached(("sel_slots_packed", str(device)),
+                       lambda: torch.as_tensor(
+                           sel_pair_slots_packed(spec)).to(device))
+
+
 def _dispatch_covmodel(spec, covmodel, device, dtype):
-    """(kernel_fn, covmat): a kernel evaluator, or a full covariance matrix
-    on ``device``."""
+    """(kernel_fn, covmat, sel): a kernel evaluator, a full covariance
+    matrix on ``device``, or the selected layout's (flat values, packed
+    pair slots) on ``device`` (NaN padding read as 0)."""
     if not _is_matrix(covmodel):
-        return make_kernel_fn(covmodel), None
+        return make_kernel_fn(covmodel), None, None
     arr = _as_array(covmodel)
     n_all, mp1 = spec.NNarray.shape
     if arr.shape == (n_all, n_all):
-        return None, torch.as_tensor(arr).to(device, dtype)
+        return None, torch.as_tensor(arr).to(device, dtype), None
     if arr.shape == (n_all, mp1):
-        raise NotImplementedError(
-            "the selected (n_all, m+1) covariance-matrix layout is not ported "
-            "to gpvecchia_torch: it needs MRA's hierarchical conditioning "
-            "(ROADMAP queue 1, item 7)")
+        vals = torch.as_tensor(np.nan_to_num(arr).ravel()).to(device, dtype)
+        return None, None, (vals, _sel_slots(spec, device))
     raise ValueError(
         f"covariance matrix shape {arr.shape} matches neither the full "
         f"({n_all},{n_all}) nor the selected ({n_all},{mp1}) layout")
@@ -283,7 +293,7 @@ def loglik_fn(spec, covmodel="matern", *, device="cuda",
     key = ("loglik", _covmodel_key(covmodel), str(device), dtype, with_aux)
     if key in plan.cache:
         return plan.cache[key]
-    kernel_fn, covmat = _dispatch_covmodel(spec, covmodel, device, dtype)
+    cov = _dispatch_covmodel(spec, covmodel, device, dtype)
     dev = _device_arrays(plan, device, dtype)
     zcache = {}
 
@@ -295,7 +305,7 @@ def loglik_fn(spec, covmodel="matern", *, device="cuda",
             # ref pins z so that its id stays unique while it is the key
             zcache.update(key=zk, ref=z, pack=_prepare_pack(dev, zt))
         ll, aux = _loglik_core(plan, dev, zcache["pack"], covparms, nuggets,
-                               dtype, device, kernel_fn, covmat)
+                               dtype, device, cov)
         return (ll, aux) if with_aux else ll
 
     plan.cache[key] = fn

@@ -42,8 +42,8 @@ def _check_mf(plan, what="prediction"):
             "prediction variances: ROADMAP queue 1, item 6)")
 
 
-def _posterior_core(plan, dev, z, covparms, nuggets, kernel_fn=None,
-                    covmat=None):
+def _posterior_core(plan, dev, z, covparms, nuggets,
+                    cov=(None, None, None)):
     """(mu over the ordered points, the kept factor) for tensors ``z`` and
     ``nuggets`` (n_obs,) in original observation order on the plan's
     device; no NA handling (the callers fill)."""
@@ -55,7 +55,7 @@ def _posterior_core(plan, dev, z, covparms, nuggets, kernel_fn=None,
     nug_point = torch.zeros(plan.n_all, dtype=dtype, device=z.device)
     nug_point = nug_point.index_put((dev["obs_points"],), nug_ord)
     col, bad = u_entries(dev["locs"], dev["NN"], dev["valid"], dev["cond"],
-                         nug_point, covparms, kernel_fn, covmat)
+                         nug_point, covparms, *cov)
     # a dropped (non-SPD) row adds nothing to W, as in the likelihood
     col_w = torch.where(bad[:, None], 0.0, col)
     zord = z[dev["ord_z"]]
@@ -86,7 +86,7 @@ def _pred_fns(spec, covmodel, device, dtype):
     key = ("pred", _covmodel_key(covmodel), str(device), dtype)
     if key in plan.cache:
         return plan.cache[key], plan
-    kernel_fn, covmat = _dispatch_covmodel(spec, covmodel, device, dtype)
+    cov = _dispatch_covmodel(spec, covmodel, device, dtype)
     dev = _device_arrays(plan, device, dtype)
 
     def as_t(a):
@@ -98,7 +98,7 @@ def _pred_fns(spec, covmodel, device, dtype):
         with torch.no_grad():
             return _posterior_core(
                 plan, dev, as_t(z), covparms,
-                as_t(nuggets).expand(plan.n_obs), kernel_fn, covmat)
+                as_t(nuggets).expand(plan.n_obs), cov)
 
     def var_fn(fac):
         with torch.no_grad():

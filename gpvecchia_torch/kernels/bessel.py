@@ -211,7 +211,9 @@ def log_kv_impl(nu, x: torch.Tensor) -> torch.Tensor:
     # log K_{mu+k} = log K_mu + sum_{j=1..k} log r_j
     r = torch.exp(log_kmu1 - log_kmu)
     logk = log_kmu + torch.where(k > 0, torch.log(r), 0.0)
-    for j in range(1, int(k.max())):
+    # a NaN smoothness (a sampler's step to a non-finite theta) climbs no
+    # step: its k and mu are NaN, and so is the result
+    for j in range(1, int(torch.nan_to_num(k).max())):
         r_new = 2.0 * (mu + j) / x_safe + 1.0 / r
         active = j < k                 # adds log r_{j+1} while j <= k-1
         logk = torch.where(active,

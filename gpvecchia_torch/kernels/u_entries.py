@@ -11,9 +11,10 @@ diagonal, col[j] the entry at neighbor j's row.  As in the JAX package's
   1.5, 2.5) always, at any other smoothness (log K_nu evaluated in the
   kernel) up to ``matern_solve.max_neighbors``;
 * every other covariance (``esqe``, user callables, a full covariance
-  matrix, and the general Matern above that bound) builds the packed
-  covariance in torch (``build_cov_packed``) in row chunks and solves it
-  with H8 (``matern_solve.solve_e0``).  Its backward recomputes each chunk with
+  matrix, the selected (n_all, m+1) layout, and the general Matern above
+  that bound) builds the packed covariance in torch (``build_cov_packed``)
+  in row chunks and solves it with H8 (``matern_solve.solve_e0``).  Its
+  backward recomputes each chunk with
   gradients (as ``jax.checkpoint`` does in the JAX package) and
   differentiates ``matern_solve.packed_solve_e0``, whose backward
   ``solve_e0_bwd`` (K2) gives the packed cotangent that torch autograd
@@ -53,19 +54,26 @@ def packed_pair_dist(locs, NN):
 
 
 def build_cov_packed(locs, NN, valid, cond, nug_point, kernel_fn, covparms,
-                     covmat=None):
+                     covmat=None, sel=None):
     """Packed upper-triangle covariance blocks, point-major: (n, P).
 
     Response-conditioned neighbors carry their nugget on the diagonal,
     invalid (padded) slots are identity-extended.  ``kernel_fn(dist,
     covparms)`` is evaluated on packed distances, or on location pairs when
     it carries ``takes_locs``; ``covmat``, a full (n_all, n_all) covariance
-    over the ordered points, is gathered from instead of a kernel.
+    over the ordered points, is gathered from instead of a kernel; so is
+    ``sel`` = (flat selected values (n_all (m+1),), packed pair slots (n,
+    P) into them, -1 for a pair the layout lacks: zero covariance), the
+    selected layout of hierarchical conditioning (GPvecchia R/createU.R:
+    89-139; slots from ``plan.sel_pair_slots_packed``).
     """
     F = NN.shape[1]
     iu, ju = _packed_index(F, locs.device)
     NNl = NN.long()
-    if covmat is not None:
+    if sel is not None:
+        vals, ps = sel
+        Cp = torch.where(ps >= 0, vals[ps.clamp(min=0).long()], 0.0)
+    elif covmat is not None:
         Cp = covmat[NNl[:, iu], NNl[:, ju]]
     elif getattr(kernel_fn, "takes_locs", False):
         pts = locs[NNl]
@@ -88,6 +96,17 @@ def _row_chunks(n, F, dtype):
     return [slice(s, min(s + step, n)) for s in range(0, n, step)]
 
 
+def _chunk_cov(geo, source, sl, nug_point, covparms):
+    """``build_cov_packed`` on the rows ``sl`` of ``geo`` = (locs, NN,
+    valid, cond), from ``source`` = (kernel_fn, covmat, sel)."""
+    locs, NN, valid, cond = geo
+    kernel_fn, covmat, sel = source
+    if sel is not None:
+        sel = (sel[0], sel[1][sl])
+    return build_cov_packed(locs, NN[sl], valid[sl], cond[sl], nug_point,
+                            kernel_fn, covparms, covmat, sel)
+
+
 class _PackedSolve(torch.autograd.Function):
     """x = C^{-1} e0 (n, F) through ``build_cov_packed`` and H8, in row
     chunks; the backward recomputes each chunk with gradients, as
@@ -97,15 +116,13 @@ class _PackedSolve(torch.autograd.Function):
     chunks in either direction."""
 
     @staticmethod
-    def forward(ctx, nug_point, covparms, geo, kernel_fn, covmat):
-        locs, NN, valid, cond = geo
+    def forward(ctx, nug_point, covparms, geo, source):
+        locs, NN = geo[:2]
         chunks = _row_chunks(NN.shape[0], NN.shape[1], locs.dtype)
-        x = torch.cat([solve_e0(build_cov_packed(
-            locs, NN[sl], valid[sl], cond[sl], nug_point, kernel_fn,
-            covparms, covmat)) for sl in chunks]) if chunks else \
-            locs.new_zeros(0, NN.shape[1])
-        ctx.geo, ctx.kernel_fn, ctx.covmat, ctx.chunks = (geo, kernel_fn,
-                                                          covmat, chunks)
+        x = torch.cat([solve_e0(_chunk_cov(geo, source, sl, nug_point,
+                                           covparms)) for sl in chunks]) \
+            if chunks else locs.new_zeros(0, NN.shape[1])
+        ctx.geo, ctx.source, ctx.chunks = geo, source, chunks
         ctx.save_for_backward(nug_point, covparms)
         return x
 
@@ -113,15 +130,13 @@ class _PackedSolve(torch.autograd.Function):
     @once_differentiable
     def backward(ctx, xbar):
         nug_point, covparms = ctx.saved_tensors
-        locs, NN, valid, cond = ctx.geo
         ng = nug_point.detach().requires_grad_(True)
         cp = covparms.detach().requires_grad_(True)
         dng = torch.zeros_like(nug_point)
         dcp = torch.zeros_like(covparms)
         for sl in ctx.chunks:
             with torch.enable_grad():
-                Cp = build_cov_packed(locs, NN[sl], valid[sl], cond[sl], ng,
-                                      ctx.kernel_fn, cp, ctx.covmat)
+                Cp = _chunk_cov(ctx.geo, ctx.source, sl, ng, cp)
                 if not Cp.requires_grad:
                     continue
                 a, b = torch.autograd.grad(packed_solve_e0(Cp), (cp, ng),
@@ -130,22 +145,23 @@ class _PackedSolve(torch.autograd.Function):
                 dcp += a
             if b is not None:
                 dng += b
-        return dng, dcp, None, None, None
+        return dng, dcp, None, None
 
 
 def u_entries(locs, NN, valid, cond, nug_point, covparms, kernel_fn=None,
-              covmat=None):
+              covmat=None, sel=None):
     """(col, bad): U-column coefficients (n, m+1) aligned with NNarray (self
     first), and the per-row Cholesky-failure mask.
 
     ``kernel_fn`` is None for the built-in Matern, else an evaluator from
     ``covariance.make_kernel_fn``; ``covmat`` a full (n_all, n_all)
-    covariance over the ordered points.  Differentiable in ``nug_point``
-    and ``covparms`` (which may lie on another device and dtype: their
-    gradients come back there)."""
+    covariance over the ordered points; ``sel`` the selected layout's
+    (flat values, packed pair slots) (``build_cov_packed``).
+    Differentiable in ``nug_point`` and ``covparms`` (which may lie on
+    another device and dtype: their gradients come back there)."""
     if not torch.is_tensor(covparms):
         covparms = torch.tensor(covparms, dtype=torch.float64)
-    if covmat is None and kernel_fn in (None, matern):
+    if covmat is None and sel is None and kernel_fn in (None, matern):
         idx = nu_index(covparms[2])            # read on the host, once
         # by F alone: the fused kernels' shared-memory bound
         if idx != GENERAL or NN.shape[1] <= max_neighbors(locs.shape[1],
@@ -157,8 +173,8 @@ def u_entries(locs, NN, valid, cond, nug_point, covparms, kernel_fn=None,
         def kernel_fn(dist, cp):
             return matern(dist, cp, GENERAL)
     cp = covparms.to(locs.device, locs.dtype)
-    x = _PackedSolve.apply(nug_point, cp, (locs, NN, valid, cond), kernel_fn,
-                           covmat)
+    x = _PackedSolve.apply(nug_point, cp, (locs, NN, valid, cond),
+                           (kernel_fn, covmat, sel))
     return _postprocess(x, valid)
 
 

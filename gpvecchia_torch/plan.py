@@ -1,7 +1,9 @@
 """Likelihood plan: spec -> static index arrays (host-side, parameter-free).
 
 A jax-free copy of the JAX package's ``plan.build_likelihood_plan`` (mode
-selection and the per-point index arrays), ``get_plan`` and ``get_mf_plan``.
+selection and the per-point index arrays), ``get_plan``, ``get_mf_plan``
+and ``get_sel_pair_slots`` (the selected covariance layout's lookup,
+with its packed form ``sel_pair_slots_packed``).
 The per-entry V-factor machinery and the symbolic factorization are not
 copied: the port runs only the multifrontal ('chol', ``use_mf``) path, and
 every other mode raises ``NotImplementedError`` in the likelihood.
@@ -10,11 +12,12 @@ every other mode raises ``NotImplementedError`` in the likelihood.
 from __future__ import annotations
 
 import dataclasses
+import warnings
 
 import numpy as np
 
 __all__ = ["LikelihoodPlan", "build_likelihood_plan", "get_plan",
-           "get_mf_plan"]
+           "get_mf_plan", "get_sel_pair_slots", "sel_pair_slots_packed"]
 
 
 @dataclasses.dataclass
@@ -126,3 +129,67 @@ def get_mf_plan(plan, leaf_elems=128):
     vert_obs = plan.obs_pos[lat_pts].astype(np.int32)
     plan.cache[key] = (mf, vert_obs)
     return plan.cache[key]
+
+
+def _sel_slot_table(spec, ia, ib, chunk_rows=65536) -> np.ndarray:
+    """(n_all, K) int32: for each row i and column pair (ia[k], ib[k]) the
+    flat index of Sigma[NN[i,ia[k]], NN[i,ib[k]]] inside the flattened
+    (n_all, m+1) selected matrix, found by hierarchical closure (the later
+    of the two points lists the other in its own conditioning set); -1
+    where the pair is invalid or not present (patterns that are not
+    hierarchically closed: those pairs count as zero covariance, with a
+    warning).  Rows go in chunks, so the temporaries stay bounded."""
+    NN = spec.NNarray.astype(np.int64)
+    n, mp1 = NN.shape
+    valid = NN >= 0
+    # lookup (row r, point q) -> flat slot r*mp1 + j
+    rows = np.repeat(np.arange(n), mp1)[valid.ravel()]
+    pts = NN[valid]
+    keys = rows * n + pts
+    order = np.argsort(keys, kind="stable")
+    skeys = keys[order]
+    svals = (rows * mp1 + (np.tile(np.arange(mp1), n)[valid.ravel()]))[order]
+    del rows, pts, keys, order
+
+    out = np.empty((n, ia.size), np.int32)
+    missing = False
+    for s in range(0, n, chunk_rows):
+        v = valid[s:s + chunk_rows]
+        nn = np.where(v, NN[s:s + chunk_rows], 0)
+        P, Q = nn[:, ia], nn[:, ib]
+        ok = v[:, ia] & v[:, ib]
+        q = np.maximum(P, Q) * n + np.minimum(P, Q)
+        pos = np.clip(np.searchsorted(skeys, q), 0, skeys.size - 1)
+        hit = skeys[pos] == q
+        out[s:s + chunk_rows] = np.where(hit & ok, svals[pos], -1)
+        missing = missing or bool((ok & ~hit).any())
+    if missing:
+        warnings.warn(
+            "selected-covariance matrix cannot represent all conditioning "
+            "pairs (pattern is not hierarchically closed); missing pairs "
+            "treated as zero covariance")
+    return out
+
+
+def get_sel_pair_slots(spec) -> np.ndarray:
+    """(n_all, m+1, m+1) int32 indices into a flattened (n_all, m+1)
+    selected covariance matrix (cached on the spec): entry (i, a, b)
+    locates Sigma[NN[i,a], NN[i,b]] inside the selected matrix (see
+    ``_sel_slot_table``; -1 for pairs it cannot represent).  The JAX
+    package's layout; the likelihood uses ``sel_pair_slots_packed``.
+    """
+
+    def build():
+        mp1 = spec.NNarray.shape[1]
+        ia, ib = np.divmod(np.arange(mp1 * mp1), mp1)
+        return _sel_slot_table(spec, ia, ib).reshape(-1, mp1, mp1)
+
+    return spec.cached("sel_pair_slots", build)
+
+
+def sel_pair_slots_packed(spec) -> np.ndarray:
+    """(n_all, P) int32, P = (m+1)(m+2)/2: the upper triangle (a <= b,
+    row-major, as ``build_cov_packed`` packs its rows) of
+    ``get_sel_pair_slots``, built from those pairs alone (not cached)."""
+    ia, ib = np.triu_indices(spec.NNarray.shape[1])
+    return _sel_slot_table(spec, ia, ib)

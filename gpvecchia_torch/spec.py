@@ -28,6 +28,7 @@ import warnings
 
 import numpy as np
 
+from .geometry.mra import find_ordered_nn_mra
 from .geometry.neighbors import find_ordered_nn, knn_indices
 from .geometry.ordering import (order_coordinate, order_maxmin_exact,
                                 order_maxmin_exact_obs_pred, order_outsidein)
@@ -118,10 +119,10 @@ def vecchia_specify(locs, m=-1, ordering=None, cond_yz=None, locs_pred=None,
 
     Option semantics mirror the reference's vecchia_specify
     (GPvecchia R/vecchia_specify.R), including defaulting rules:
-    ordering 'coord' in 1-D else 'maxmin'; cond_yz 'SGV' without
-    predictions or in 1-D, 'zy' with predictions; the maxmin head rotation;
-    and the obspred prediction ordering.  MRA and 'firstm' conditioning are
-    not ported yet and raise ``NotImplementedError``.
+    ordering 'coord' in 1-D else 'maxmin'; cond_yz 'y' for mra, 'SGV'
+    without predictions or in 1-D, 'zy' with predictions; the maxmin head
+    rotation; and the obspred prediction ordering.  'firstm' is MRA with
+    r = (m, 1); MRA forces the maxmin ordering.
     """
     locs = np.atleast_2d(np.asarray(locs, dtype=np.float64))
     n, d = locs.shape
@@ -157,16 +158,23 @@ def vecchia_specify(locs, m=-1, ordering=None, cond_yz=None, locs_pred=None,
             ord=ordv, ord_z=ordv.copy(), ordering_pred="general",
             cond_yz="m0", conditioning="NN", ic0=ic0, n_obs=n, n_pred=0)
 
-    if conditioning in ("mra", "firstm"):
-        raise NotImplementedError(
-            f"conditioning='{conditioning}' (MRA) is not ported to "
-            "gpvecchia_torch yet (ROADMAP queue 1)")
+    # subsume firstm into mra (low-rank: r=(m, 1))
+    user_conditioning = conditioning
+    if conditioning == "firstm":
+        conditioning = "mra"
+        mra_options = {"r": [m, 1]}
 
     # default options
     if ordering is None:
         ordering = "coord" if d == 1 else "maxmin"
+    if conditioning == "mra" and ordering != "maxmin":
+        warnings.warn("ordering for the selected conditioning scheme changed "
+                      "to required 'maxmin'")
+        ordering = "maxmin"
     if cond_yz is None:
-        if (not has_pred) or d == 1:
+        if conditioning == "mra":
+            cond_yz = "y"
+        elif (not has_pred) or d == 1:
             cond_yz = "SGV"
         else:
             cond_yz = "zy"
@@ -221,10 +229,16 @@ def vecchia_specify(locs, m=-1, ordering=None, cond_yz=None, locs_pred=None,
     n_locs = locsord.shape[0]
 
     # ---- conditioning sets ----
-    if conditioning == "NN":
+    mra_eff_m = None
+    if conditioning == "mra":
+        NNarray, mra_eff_m = find_ordered_nn_mra(locsord, mra_options, m,
+                                                 verbose)
+        if m == -1:
+            m = NNarray.shape[1] - 1
+    elif conditioning == "NN":
         NNarray = find_ordered_nn(locsord, m)
     else:
-        raise ValueError(f"conditioning='{conditioning}' not defined")
+        raise ValueError(f"conditioning='{user_conditioning}' not defined")
 
     if has_pred and pred_cond == "independent":
         if ordering_pred == "obspred":
@@ -284,7 +298,7 @@ def vecchia_specify(locs, m=-1, ordering=None, cond_yz=None, locs_pred=None,
         has_latent=np.ones(n_locs, bool), has_obs=obs,
         ord=ordv, ord_z=ord_z, ordering_pred=ordering_pred,
         cond_yz=cond_yz, conditioning=conditioning, ic0=ic0,
-        n_obs=n, n_pred=n_pred)
+        n_obs=n, n_pred=n_pred, mra_eff_m=mra_eff_m)
 
 
 def _specify_zy(locs, locsord, ordv, ord_z, obs, NNarray, valid, n, n_pred, m,

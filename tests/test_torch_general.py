@@ -6,7 +6,7 @@ distance callable, a location-pair callable and a full covariance matrix,
 all through ``build_cov_packed`` and H8's plain version.  Also the
 cross-path check (the closed-form Matern as a user callable takes H8's path
 and must equal the built-in H1 path), the covariance-matrix cache key, the
-selected-matrix layout that stays unported, and the default device.
+selected-matrix layout on an MRA spec, and the default device.
 """
 
 import warnings
@@ -24,6 +24,7 @@ from gpvecchia_tpu.inference.likelihood import \
     zero_nugget_variant as jax_zero_variant
 
 import gpvecchia_torch as GT
+from gpvecchia_torch.hv import get_mat_cov
 from gpvecchia_torch.inference.likelihood import zero_nugget_variant
 from gpvecchia_torch.kernels import matern_solve as MS
 
@@ -351,11 +352,20 @@ def test_covmat_cache_tells_matrices_apart():
 
 
 def test_selected_matrix_layout_raises():
+    """The selected (n_all, m+1) layout, which this test once pinned as
+    unported, gives the JAX package's value on an MRA spec; a matrix of
+    neither layout's shape still raises."""
     locs, z = _data(n=40, seed=8)
-    spec = GT.vecchia_specify(locs, m=5)
-    sel = np.ones(spec.NNarray.shape)
-    with pytest.raises(NotImplementedError, match="queue 1, item 7"):
-        GT.vecchia_likelihood(z, spec, (), 0.1, sel, device="cpu")
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")
+        spec = GT.vecchia_specify(locs, m=5, conditioning="mra")
+        sj = GJ.vecchia_specify(locs, m=5, conditioning="mra")
+    sel = get_mat_cov(spec, _covmat(spec, (1.0, 0.3, 0.8)))
+    ll = GT.vecchia_likelihood(z, spec, (), 0.1, sel, device="cpu")
+    np.testing.assert_allclose(ll, GJ.vecchia_likelihood(z, sj, (), 0.1, sel),
+                               rtol=REL)
+    np.testing.assert_allclose(ll, GT.vecchia_likelihood(
+        z, spec, (1.0, 0.3, 0.8), 0.1, device="cpu"), rtol=REL)
     with pytest.raises(ValueError, match="matches neither"):
         GT.vecchia_likelihood(z, spec, (), 0.1, np.ones((3, 3)),
                               device="cpu")

@@ -9,6 +9,7 @@ build directory.
 import os
 import subprocess
 import sys
+import warnings
 from pathlib import Path
 
 import numpy as np
@@ -100,8 +101,16 @@ def test_from_jax_spec_copies_arrays():
 
 
 def test_mra_conditioning_not_ported():
-    with pytest.raises(NotImplementedError):
-        GT.vecchia_specify(_locs(60), m=5, conditioning="firstm")
+    """MRA conditioning, which this test once pinned as unported, is
+    ported: 'firstm' gives the JAX package's spec (MRA with r = (m, 1)),
+    effective m included."""
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")
+        spec_t = GT.vecchia_specify(_locs(60), m=5, conditioning="firstm")
+        spec_j = GJ.vecchia_specify(_locs(60), m=5, conditioning="firstm")
+    _assert_spec_equal(spec_t, spec_j)
+    assert spec_t.conditioning == "mra" and spec_t.cond_yz == "y"
+    assert spec_t.mra_eff_m == spec_j.mra_eff_m == 5
 
 
 def test_port_imports_neither_jax_nor_reference():
