@@ -114,9 +114,28 @@ Builds the host library and the CUDA kernels from this checkout, then
    the default size ``fit.mcmc.sample_posterior`` (smoothness sampled: the
    general H1 and H5; f64) on the card and on the CPU from one seed, the
    draws held to NUTS_REL.
+11. V-path phase: the per-entry V engine through the entry points
+   (``vpath_phase``): the zy spec (vecchia_likelihood f64 and f32,
+   loglik_fn evaluation and value+grad timed in f32, two value+grads bit
+   for bit, zero nuggets on every V_ZERO_EVERY-th observation), the
+   default spec with the PRED_N_PRED prediction points (zy, obspred:
+   vecchia_prediction means, selected-inverse and exact prediction
+   variances, each timed in f32; vecchia_pred once), SGV with them in the
+   obspred ordering (the same), SGV IC0 (likelihood and value+grad as
+   zy's, prediction) and a logistic VL solve on the zy spec; each spec's
+   ensure_v seconds, v_nnz and level counts printed.  The launch counts
+   are set to 0 before each case: H1 (and H5 after a value+grad) must
+   launch, H2-H4 must not.  f32 is held against f64 on the card (values
+   SLICE_F32_REL, predictions PRED_F32_REL, gradients V_GRAD_F32_REL of
+   the joint |g|max), f64 against the CPU plain path on specs of the
+   first V_SUB_N points and V_SUB_PRED prediction points, and H1/H5
+   against their plain versions at the zy spec's latent rows, each
+   conditioned on its own response at distance 0.  The f32 times are in
+   the summary as zy_eval_ms, zy_vg_ms, zy_pred_mean_ms, ... .
    --n 1000000 --m 40 runs phases 2-4 and 6 in f32 only (6 holds f32
-   against one f64 run on the card), and phases 8 and 10 without their
-   default-size parts.
+   against one f64 run on the card), phases 8 and 10 without their
+   default-size parts, and phase 11 on the zy and default prediction
+   specs only, without the CPU check.
 
 The kernel phase also computes each kernel's bound (the least time the card
 could take: the larger of the bytes its inputs and outputs need over the
@@ -126,10 +145,17 @@ conditioning matrices), that call's time.  No one call builds log K_nu and
 solves, so the general H1 and H5 have none.
 
 ``--profile`` adds torch.profiler tables of one f32 evaluation, one
-closed-form and one smoothness-0.8 value+grad, and one prediction mean and
-one selected inverse.
+closed-form and one smoothness-0.8 value+grad, one prediction mean and
+one selected inverse, and of the V path a zy and an IC0 value+grad, an
+obspred prediction mean and its exact prediction variances (at n > 1e5
+the zy value+grad and the default prediction spec's mean and exact
+variances).
 
-``--only-h4`` is a tool for work on H4: it builds the kernels, runs the edge
+``--only-vpath`` is a tool for work on the per-entry V engine: it builds,
+holds two f32 value+grads of the run's SGV spec bit for bit, runs the
+V-path phase (and with ``--profile`` its profiles) at ``--n``/``--m`` and
+exits without the final device line.  ``--only-h4`` is a tool for work on
+H4: it builds the kernels, runs the edge
 shapes and the level phase on the fixed table of the 14 level shapes of
 n=1e6, m=40 (no spec, no plan, no other phase) and exits without the final
 device line, so that such a run is never taken for a pass.  ``--only-h15``
@@ -808,7 +834,7 @@ def gen_run(h1g, h5g, locs, NN, valid, resp, covparms, label, main, dev,
 
     def plain_bwd(locs_t, NN_t, v, r, nug, cp, x, xb):
         return MS.reduce_bwd(*MS.matern_solve_e0_bwd_plain(
-            locs_t, NN_t, v, r, nug, cp, x, xb), xb, NN_t, nug, cp)
+            locs_t, NN_t, v, r, nug, cp, x, xb), xb, NN_t, r, nug, cp)
 
     def cost_bwd(dt):
         # H1's inputs plus x and xbar in, dpar (n, 3) f64 and dslot out; the
@@ -1770,11 +1796,17 @@ def grad_phase(spec, z, big, counters):
             if not (np.isfinite(r[0]) and np.all(np.isfinite(r[1]))
                     and np.all(np.isfinite(r[2]))):
                 raise AssertionError(f"{dt}: value or gradient not finite")
-        if np.abs(out[1] - first[1]).max() > 1e-6 * np.abs(first[1]).max():
-            raise AssertionError(f"{dt}: gradient not repeatable")
+        # the reductions run in a fixed order: two value+grads on the same
+        # inputs agree bit for bit
+        same = first[0] == out[0] and np.array_equal(first[1], out[1]) \
+            and np.array_equal(first[2], out[2])
+        if not same:
+            raise AssertionError(f"{dt}: value+grad not bit-reproducible: "
+                                 f"{first} then {out}")
         name = str(dt).split(".")[-1]
         res[name] = dict(scalar=first, vector=vec, first_s=first_s,
-                         value_grad_ms=statistics.median(times))
+                         value_grad_ms=statistics.median(times),
+                         bit_equal=same)
         log(f"  cuda {name}: loglik {first[0]!r}, dcovparms {first[1]}, "
             f"dnugget {float(first[2])!r}; vector nuggets: loglik "
             f"{vec[0]!r}, dcovparms {vec[1]}, |dnuggets|max "
@@ -2284,16 +2316,20 @@ PRED_KEYS = ("mu_obs", "mu_pred", "var_obs", "var_pred")
 
 
 def _pred_errors(got, ref):
-    """Each output's max |got - ref| over its max |ref|."""
+    """Each output's max |got - ref| over its max |ref| (outputs not
+    computed, None, skipped)."""
     return {k: float(np.abs(got[k] - ref[k]).max() / np.abs(ref[k]).max())
-            for k in PRED_KEYS if ref[k].size}
+            for k in PRED_KEYS if ref[k] is not None and ref[k].size}
 
 
 def _check_pred(label, out, spec):
-    """Finite means and positive finite variances of the expected shapes."""
+    """Finite means and positive finite variances of the expected shapes
+    (outputs not computed, None, skipped)."""
     for k in PRED_KEYS:
         size = spec.n_obs if k.endswith("obs") else spec.n_pred
         v = out[k]
+        if v is None:
+            continue
         if v.shape != (size,) or not np.all(np.isfinite(v)) or (
                 k.startswith("var") and not np.all(v > 0)):
             raise AssertionError(f"{label}: {k} of shape {v.shape} not "
@@ -2304,7 +2340,8 @@ def _drop_f64_caches(spec):
     """Drop the f64 device arrays and functions cached in the plan."""
     from gpvecchia_torch.plan import get_plan
     cache = get_plan(spec).cache
-    for k in [k for k in cache if torch.float64 in k]:
+    for k in [k for k in cache if isinstance(k, tuple)
+              and torch.float64 in k]:
         del cache[k]
     torch.cuda.empty_cache()
 
@@ -2948,6 +2985,408 @@ def nuts_phase(spec_m, locs, z, big, counters, gen_counters):
     return res
 
 
+# ---------------------------------------------------------------- V path --
+
+V_SUB_N, V_SUB_PRED = 20_000, 2_000
+V_GRAD_F32_REL = 1e-4
+V_ZERO_EVERY = 100         # every 100th observation exact in the zero case
+
+
+def _ms(fn, reps):
+    """Median wall milliseconds of fn() over reps runs, the card synchronized
+    before and after each (host and device time: the V engine's Python
+    level loop is part of it)."""
+    times = []
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    return statistics.median(times)
+
+
+def v_host(label, spec, selinv=True):
+    """The per-entry V machinery's host side of ``spec``: ensure_v's seconds
+    (V pattern, symbolic fill, factor and solve schedules), with
+    ``selinv`` the selected inverse's level maps' seconds (built on the
+    host, then put on the card), v_nnz and the level counts."""
+    from gpvecchia_torch.inference.prediction import _selinv_levels
+    from gpvecchia_torch.plan import ensure_v, get_plan
+    plan = get_plan(spec)
+    t0 = time.perf_counter()
+    ensure_v(plan)
+    ens = time.perf_counter() - t0
+    sel = None
+    if selinv:
+        t0 = time.perf_counter()
+        _selinv_levels(plan, torch.device("cuda"))
+        sel = time.perf_counter() - t0
+    out = dict(mode=plan.mode, ic0=plan.ic0, n_lat=plan.n_lat,
+               ensure_v_s=ens, selinv_maps_s=sel, v_nnz=plan.v_nnz,
+               v_phys_size=plan.v_phys_size,
+               factor_levels=sum(len(b.offsets) for b in plan.factor_buckets),
+               fwd_levels=sum(len(b.offsets) for b in plan.fwd_blocks),
+               bwd_levels=sum(len(b.offsets) for b in plan.bwd_blocks))
+    log(f"  {label}: mode {out['mode']} (ic0 {out['ic0']}), n_lat "
+        f"{out['n_lat']}, ensure_v {ens:.2f} s"
+        + ("" if sel is None else f", selected-inverse maps {sel:.2f} s")
+        + f"; v_nnz {out['v_nnz']}, physical {out['v_phys_size']}; levels: "
+        f"factor {out['factor_levels']}, forward solve {out['fwd_levels']}, "
+        f"backward solve and selected inverse {out['bwd_levels']}")
+    return out
+
+
+def _v_counts(label, h1, h5, mf, grad):
+    """The V path's launch counts: H1 (and H5 after a gradient) positive,
+    the multifrontal kernels H2-H4 never."""
+    launches = _launches((h1, h5) + mf)
+    log(f"  {label} launches: {launches}")
+    if h1.launches <= 0 or (grad and h5.launches <= 0) or any(
+            k.launches for k in mf):
+        raise AssertionError(f"{label}: H1{' and H5' if grad else ''} must "
+                             f"launch and H2-H4 must not: {launches}")
+    return launches
+
+
+def _grad_err(got, ref):
+    """max |difference| over (dcovparms, dnuggets) over the reference's
+    |g|max (joint: the zy family's likelihood does not depend on the
+    covariance parameters, so their gradient alone is rounding)."""
+    scale = max(np.abs(ref[1]).max(), np.abs(ref[2]).max())
+    return max(np.abs(got[i] - ref[i]).max() for i in (1, 2)) / scale
+
+
+def v_lik(label, spec, z, nug, grad, counters):
+    """Likelihood (and value+grad) of ``spec`` on the card in f64 and f32:
+    f32 timed (median of 5 evaluations, of 3 value+grads), two f32
+    value+grads bit for bit, f32 against f64."""
+    import gpvecchia_torch as gt
+    from gpvecchia_torch.inference.likelihood import zero_nugget_variant
+    h1, h5, mf = counters
+    for k in (h1, h5) + mf:
+        k.launches = 0
+    # zero nuggets: loglik_fn takes the variant spec, as vecchia_likelihood
+    spec_v = zero_nugget_variant(spec, np.broadcast_to(
+        np.asarray(nug, np.float64), (spec.n_obs,)))
+    res = {}
+    for dt in (torch.float64, torch.float32):
+        name = str(dt).split(".")[-1]
+        t0 = time.perf_counter()
+        ll = gt.vecchia_likelihood(z, spec, COVPARMS, nug, device="cuda",
+                                   dtype=dt)
+        r = dict(loglik=ll, first_s=time.perf_counter() - t0)
+        fn = gt.loglik_fn(spec_v, device="cuda", dtype=dt)
+        zt = torch.as_tensor(z, dtype=dt, device="cuda")
+        r["eval_ms"] = _ms(lambda: fn(zt, COVPARMS, nug).item(), 5)
+        if grad:
+            first = value_grad(fn, zt, nug)
+            r["value_grad_ms"] = _ms(lambda: value_grad(fn, zt, nug), 3)
+            again = value_grad(fn, zt, nug)
+            r["bit_equal"] = first[0] == again[0] and all(
+                np.array_equal(first[i], again[i]) for i in (1, 2))
+            r["grad"] = first
+            if not (np.all(np.isfinite(first[1])) and np.all(
+                    np.isfinite(first[2])) and r["bit_equal"]):
+                raise AssertionError(f"{label} {name}: gradient not finite "
+                                     "or not bit-reproducible")
+        if not np.isfinite(ll):
+            raise AssertionError(f"{label} {name}: loglik {ll}")
+        res[name] = r
+        log(f"  {label} cuda {name}: loglik {ll!r}, first call "
+            f"{r['first_s']:.2f} s, eval {r['eval_ms']:.2f} ms"
+            + (f", value+grad {r['value_grad_ms']:.2f} ms, dcovparms "
+               f"{r['grad'][1]}, two value+grads bit-equal {r['bit_equal']}"
+               if grad else ""))
+    res["launches"] = _v_counts(label, h1, h5, mf, grad)
+    e = abs(res["float32"]["loglik"] - res["float64"]["loglik"]) \
+        / abs(res["float64"]["loglik"])
+    res["f32_vs_f64"] = dict(value=e)
+    msg = f"  {label} f32 vs f64: value {e:.3e} (tol {SLICE_F32_REL:g})"
+    ok = e <= SLICE_F32_REL
+    if grad:
+        eg = _grad_err(res["float32"]["grad"], res["float64"]["grad"])
+        res["f32_vs_f64"]["grad"] = eg
+        msg += f", gradient {eg:.3e} of |g|max (tol {V_GRAD_F32_REL:g})"
+        ok = ok and eg <= V_GRAD_F32_REL
+    log(msg)
+    if not ok:
+        raise AssertionError(f"{label}: f32 disagrees with f64")
+    for name in ("float64", "float32"):
+        if grad:
+            res[name]["grad"] = _jsonable(res[name]["grad"])
+    return res
+
+
+def v_pred(label, spec, z, counters, selinv=True):
+    """vecchia_prediction of ``spec`` on the card in f64 and f32 (the exact
+    prediction variances on obspred specs), f32 against f64; then the f32
+    mean, selected inverse and exact variances timed apart (medians of 5,
+    3 for the exact variances).  Without ``selinv`` (n > 1e5: its host
+    maps take minutes there) the means and the exact prediction variances
+    alone."""
+    import gpvecchia_torch as gt
+    from gpvecchia_torch.inference.prediction import (_exact_pred_vars,
+                                                      _pred_fns)
+    h1, h5, mf = counters
+    for k in (h1, h5) + mf:
+        k.launches = 0
+    outs, res = {}, {}
+    for dt in (torch.float64, torch.float32):
+        name = str(dt).split(".")[-1]
+        t0 = time.perf_counter()
+        out = gt.vecchia_prediction(z, spec, COVPARMS, NUGGET, device="cuda",
+                                    dtype=dt, return_values="all" if selinv
+                                    else "meanmat")
+        if not selinv:
+            out["var_pred"] = _exact_pred_vars(spec, out["_plan"], out["V"])
+        res[name] = dict(first_s=time.perf_counter() - t0)
+        del out["V"], out["_plan"]
+        _check_pred(f"{label} {name}", out, spec)
+        outs[name] = out
+    (mean_fn, var_fn), plan = _pred_fns(spec, "matern", torch.device("cuda"),
+                                        torch.float32)
+    zt = torch.as_tensor(z, dtype=torch.float32, device="cuda")
+    _, v = mean_fn(zt, COVPARMS, NUGGET)
+    r = res["float32"]
+    r["mean_ms"] = _ms(lambda: mean_fn(zt, COVPARMS, NUGGET), 5)
+    if selinv:
+        r["selinv_ms"] = _ms(lambda: var_fn(v), 5)
+    if spec.n_pred:
+        r["var_exact_ms"] = _ms(lambda: _exact_pred_vars(spec, plan, v), 3)
+    res["launches"] = _v_counts(label, h1, h5, mf, False)
+    e32 = _pred_errors(outs["float32"], outs["float64"])
+    res["f32_vs_f64"] = e32
+    log(f"  {label} cuda float32: mean {r['mean_ms']:.2f} ms"
+        + (f", selected inverse {r['selinv_ms']:.2f} ms" if selinv else "")
+        + (f", exact prediction variances ({spec.n_pred}) "
+           f"{r['var_exact_ms']:.2f} ms" if spec.n_pred else "")
+        + "; f32 vs f64: " + ", ".join(f"{k} {v:.3e}" for k, v in e32.items())
+        + f" (tol {PRED_F32_REL:g})")
+    if max(e32.values()) > PRED_F32_REL:
+        raise AssertionError(f"{label}: f32 prediction disagrees with f64")
+    return res, outs["float64"]
+
+
+def v_check(specs, locs, locs_pred, z, zb):
+    """f64 on the card against the CPU plain path on sub-size specs (the
+    first V_SUB_N points, V_SUB_PRED prediction points) of each V case:
+    values and predictions to PRED_F64_REL of each output's max, gradients
+    to GRAD_F64_REL of |g|max, the VL solve as ``vl_phase``'s check."""
+    import gpvecchia_torch as gt
+    n, npred = min(V_SUB_N, z.size), min(V_SUB_PRED, locs_pred.shape[0])
+    zc, nug0 = z[:n], np.where(np.arange(n) % V_ZERO_EVERY == 0, 0.0, NUGGET)
+    errs = {}
+    t0 = time.perf_counter()
+    for label, kw in specs.items():
+        kw = dict(kw)
+        if kw.pop("pred", False):
+            kw["locs_pred"] = locs_pred[:npred]
+        sub = gt.vecchia_specify(locs[:n], **kw)
+        run = {}
+        for dev in ("cuda", "cpu"):
+            r = {}
+            zt = torch.as_tensor(zc, device=dev)
+            if "pred" in label:
+                r["pred"] = gt.vecchia_prediction(zc, sub, COVPARMS, NUGGET,
+                                                  device=dev,
+                                                  return_values="meanvar")
+            else:
+                r["vg"] = value_grad(gt.loglik_fn(sub, device=dev), zt,
+                                     NUGGET)
+            if label == "ic0":
+                r["pred"] = gt.vecchia_prediction(zc, sub, COVPARMS, NUGGET,
+                                                  device=dev,
+                                                  return_values="meanvar")
+            if label == "zy":
+                r["zero"] = gt.vecchia_likelihood(zc, sub, COVPARMS, nug0,
+                                                  device=dev)
+                r["vl"] = gt.calculate_posterior_VL(
+                    zb[:n], sub, "logistic", COVPARMS, max_iter=VL_MAX_ITER,
+                    device=dev)
+            run[dev] = r
+        g, c = run["cuda"], run["cpu"]
+        e = {}
+        if "vg" in c:
+            e["value"] = abs(g["vg"][0] - c["vg"][0]) / abs(c["vg"][0])
+            e["grad"] = _grad_err(g["vg"], c["vg"])
+        if "pred" in c:
+            e.update(_pred_errors(g["pred"], c["pred"]))
+        if "zero" in c:
+            e["zero_nugget_value"] = abs(g["zero"] - c["zero"]) / abs(
+                c["zero"])
+        if "vl" in c:
+            if (g["vl"]["iter"], g["vl"]["cnvgd"]) != (c["vl"]["iter"],
+                                                         c["vl"]["cnvgd"]):
+                raise AssertionError("V check: the VL solves part")
+            for k in ("mean", "D"):
+                e["vl_" + k] = float(np.abs(g["vl"][k] - c["vl"][k]).max()
+                                     / np.abs(c["vl"][k]).max())
+        errs[label] = e
+        tol = {k: GRAD_F64_REL if k == "grad" else
+               VL_F64_REL if k.startswith("vl") else PRED_F64_REL for k in e}
+        log(f"  n={n}: {label} cuda f64 vs cpu f64: " + ", ".join(
+            f"{k} {v:.3e} (tol {tol[k]:g})" for k, v in e.items()))
+        if any(v > tol[k] for k, v in e.items()):
+            raise AssertionError(f"V check {label}: the card's f64 disagrees "
+                                 "with the CPU's")
+    log(f"  sub-size checks: {time.perf_counter() - t0:.1f} s")
+    return errs
+
+
+def v_shapes(spec, seed, dev):
+    """H1 and H5 against their plain versions at the zy plan's shapes: all
+    its n_all rows, where each latent conditions on its own response at
+    distance 0 (the rows the V path's likelihood gives H1; not the main
+    path's: in no ``kernels`` row)."""
+    from gpvecchia_torch.plan import get_plan
+    plan = get_plan(spec)
+    n = spec.n_obs
+    NN, valid, cond = plan.NN, plan.valid, plan.cond
+    own = np.arange(n, 2 * n)[:, None] - n
+    if not np.any(valid[n:2 * n] & ~cond[n:2 * n] & (NN[n:2 * n] == own)):
+        raise AssertionError("zy shapes: no latent conditions on its own "
+                             "response")
+    h1 = KernelCheck("matern_solve_e0")
+    h5 = KernelCheck("matern_solve_e0_bwd")
+    h15_run(h1, h5, plan.locs, NN, valid, valid & ~cond,
+            f"zy n_all={NN.shape[0]} F={NN.shape[1]}", False, seed, dev)
+    return {"matern_solve_e0": h1.rows, "matern_solve_e0_bwd": h5.rows}
+
+
+def vpath_phase(locs, z, zb, locs_pred, m, big, counters, dev, seed,
+                profile=False):
+    """The per-entry V engine on the card through the entry points: the zy
+    family's direct mode (likelihood f64/f32, value+grad, zero nuggets,
+    prediction with exact variances on the default spec with prediction
+    points, vecchia_pred, VL), obspred SGV (prediction, exact variances)
+    and IC0 (likelihood, value+grad, prediction); at n > 1e5 the direct
+    mode's likelihood and prediction only.  Every case resets the launch
+    counts: H1 (and H5 with a gradient) launch, H2-H4 never.  Then the f64
+    sub-size checks against the CPU (``v_check``) and H1/H5 at the zy
+    shapes (``v_shapes``); with ``profile`` ``profile_vpath``."""
+    import gpvecchia_torch as gt
+    from gpvecchia_torch.fit.mle import vecchia_pred
+    specs = {"zy": dict(m=m, cond_yz="zy"), "zy_pred": dict(m=m, pred=True)}
+    if not big:
+        specs["obspred_pred"] = dict(m=m, pred=True, cond_yz="SGV",
+                                     ordering_pred="obspred")
+        specs["ic0"] = dict(m=m, cond_yz="SGV", ic0=True)
+    res, built = {"host": {}}, {}
+    for label, kw in specs.items():
+        kw = dict(kw)
+        if kw.pop("pred", False):
+            kw["locs_pred"] = locs_pred
+        t0 = time.perf_counter()
+        built[label] = gt.vecchia_specify(locs, **kw)
+        spec_s = time.perf_counter() - t0
+        res["host"][label] = dict(v_host(label, built[label], not big),
+                                  spec_s=spec_s)
+    torch.cuda.reset_peak_memory_stats()
+    res["zy"] = v_lik("zy", built["zy"], z, NUGGET, True, counters)
+    res["zy_pred"], _ = v_pred("zy_pred", built["zy_pred"], z, counters,
+                               not big)
+    if not big:
+        nug0 = np.where(np.arange(z.size) % V_ZERO_EVERY == 0, 0.0, NUGGET)
+        res["zy_zero_nugget"] = v_lik("zy zero nuggets", built["zy"], z,
+                                      nug0, False, counters)
+        res["obspred"], _ = v_pred("obspred_pred", built["obspred_pred"], z,
+                                   counters)
+        res["ic0"] = v_lik("ic0", built["ic0"], z, NUGGET, True, counters)
+        res["ic0_pred"], _ = v_pred("ic0", built["ic0"], z, counters)
+        h1, h5, mf = counters
+        for k in (h1, h5) + mf:
+            k.launches = 0
+        est = dict(z=z, locs=locs, theta_hat=np.array([*COVPARMS, NUGGET]),
+                   covmodel="matern", trend="none", beta_hat=np.zeros(0))
+        t0 = time.perf_counter()
+        vp = vecchia_pred(est, locs_pred, m=m, device="cuda",
+                          dtype=torch.float32)
+        vp_s = time.perf_counter() - t0
+        if vp["mean_pred"].shape != (locs_pred.shape[0],) or not (
+                np.all(np.isfinite(vp["mean_pred"]))
+                and np.all(vp["var_pred"] > 0)):
+            raise AssertionError("vecchia_pred: not finite or not positive")
+        res["vecchia_pred"] = dict(seconds=vp_s, launches=_v_counts(
+            "vecchia_pred", h1, h5, mf, False))
+        log(f"  vecchia_pred (default spec, f32, spec included): "
+            f"{vp_s:.2f} s")
+        for k in (h1, h5) + mf:
+            k.launches = 0
+        kw = dict(max_iter=VL_MAX_ITER, device="cuda", dtype=torch.float32)
+        gt.calculate_posterior_VL(zb, built["zy"], "logistic", COVPARMS, **kw)
+        post = gt.calculate_posterior_VL(zb, built["zy"], "logistic",
+                                         COVPARMS, **kw)
+        if not np.all(np.isfinite(post["mean"])):
+            raise AssertionError("VL on the zy spec: mean not finite")
+        res["vl_zy"] = dict(nr_ms=post["runtime"] * 1e3, iters=post["iter"],
+                            cnvgd=post["cnvgd"], launches=_v_counts(
+                                "VL zy", h1, h5, mf, False))
+        log(f"  VL zy (logistic, f32): NR solve {post['runtime'] * 1e3:.2f} "
+            f"ms, {post['iter']} iterations, converged {post['cnvgd']}")
+    res["peak_bytes"] = torch.cuda.max_memory_allocated()
+    log(f"  peak device memory {res['peak_bytes'] / 2**30:.3f} GiB")
+    if not big:
+        res["check"] = v_check(specs, locs, locs_pred, z, zb)
+    res["shapes"] = v_shapes(built["zy"], seed, dev)
+    if profile:
+        profile_vpath(built, z, big)
+    return res
+
+
+def profile_vpath(built, z, big):
+    """One warm f32 value+grad of the zy spec and of the IC0 spec, one
+    prediction mean of the obspred spec and its exact prediction variances
+    (the default prediction spec's at n > 1e5) under torch.profiler;
+    ``built`` holds ``vpath_phase``'s specs."""
+    import gpvecchia_torch as gt
+    from gpvecchia_torch.inference.prediction import (_exact_pred_vars,
+                                                      _pred_fns)
+    zt = torch.as_tensor(z, dtype=torch.float32, device="cuda")
+    for label in ("zy",) + (() if big else ("ic0",)):
+        fn = gt.loglik_fn(built[label], device="cuda", dtype=torch.float32)
+        profile_call(f"{label} value+grad at {COVPARMS}", lambda: (
+            value_grad(fn, zt, NUGGET), torch.cuda.synchronize()))
+        del fn
+    label = "zy_pred" if big else "obspred_pred"
+    spec = built[label]
+    (mean_fn, _), plan = _pred_fns(spec, "matern", torch.device("cuda"),
+                                   torch.float32)
+    held = {}
+
+    def mean():
+        held["v"] = mean_fn(zt, COVPARMS, NUGGET)[1]
+        torch.cuda.synchronize()
+
+    def exact():
+        _exact_pred_vars(spec, plan, held["v"])
+        torch.cuda.synchronize()
+
+    profile_call(f"{label} prediction mean at {COVPARMS}", mean)
+    profile_call(f"{label} exact prediction variances", exact)
+    held.clear()
+
+
+def v_names(vp):
+    """The V path's f32 timings under their names in the summary."""
+    out = dict(zy_eval_ms=vp["zy"]["float32"]["eval_ms"],
+               zy_vg_ms=vp["zy"]["float32"]["value_grad_ms"],
+               zy_pred_mean_ms=vp["zy_pred"]["float32"]["mean_ms"],
+               zy_pred_selinv_ms=vp["zy_pred"]["float32"].get("selinv_ms"),
+               zy_pred_var_exact_ms=vp["zy_pred"]["float32"]["var_exact_ms"])
+    if "ic0" in vp:
+        out.update(
+            obspred_pred_mean_ms=vp["obspred"]["float32"]["mean_ms"],
+            obspred_selinv_ms=vp["obspred"]["float32"]["selinv_ms"],
+            obspred_var_exact_ms=vp["obspred"]["float32"]["var_exact_ms"],
+            ic0_eval_ms=vp["ic0"]["float32"]["eval_ms"],
+            ic0_vg_ms=vp["ic0"]["float32"]["value_grad_ms"],
+            ic0_pred_mean_ms=vp["ic0_pred"]["float32"]["mean_ms"],
+            ic0_selinv_ms=vp["ic0_pred"]["float32"]["selinv_ms"],
+            vl_zy_nr_ms=vp["vl_zy"]["nr_ms"])
+    return out
+
+
 def _jsonable(r, summary=False):
     """(loglik, dcovparms, dnuggets) as JSON values; ``summary`` keeps only
     the largest |dnuggets| of a vector."""
@@ -2975,6 +3414,12 @@ def main():
                          "H7 at its leaf and H3 at each of its internal "
                          "levels, and nothing else; prints no final device "
                          "line")
+    ap.add_argument("--only-vpath", action="store_true",
+                    help="a tool for work on the per-entry V engine: build, "
+                         "two f32 value+grads on the run's SGV spec held "
+                         "bit for bit, the V-path phase at --n and --m "
+                         "(with --profile its profiles), and nothing else; "
+                         "prints no final device line")
     ap.add_argument("--only-h15", action="store_true",
                     help="a tool for work on H1 and H5: build, their edge "
                          "shapes and both kernels at F = 11, 21, 41 and 72 "
@@ -3054,6 +3499,25 @@ def main():
     log(f"host: spec {spec_s:.2f} s, plan {plan_s:.2f} s, MF depth "
         f"{mf.depth}, leaf {mf.levels[-1].elem_pos.shape}, root P "
         f"{mf.levels[0].npiv}")
+    if args.only_vpath:
+        log("the V path alone (not a pass of this script):")
+        fn = gt.loglik_fn(spec, device="cuda", dtype=torch.float32)
+        zt = torch.as_tensor(z, dtype=torch.float32, device="cuda")
+        a, b = (value_grad(fn, zt, NUGGET) for _ in range(2))
+        same = a[0] == b[0] and all(np.array_equal(a[i], b[i])
+                                    for i in (1, 2))
+        log(f"  SGV (multifrontal) f32 value+grad twice: {a[0]!r}, "
+            f"{a[1]}, {float(a[2])!r}; bit-equal {same}")
+        if not same:
+            raise AssertionError("SGV value+grad not bit-reproducible")
+        del fn, zt
+        vpath = vpath_phase(locs, z, zb, locs_pred, args.m, args.n > 100_000,
+                            (MS.matern_solve_e0, MS.matern_solve_e0_bwd,
+                             (FR.leaf_assemble, FR.extend_add,
+                              FR.front_factor)), dev, args.seed, args.profile)
+        print(json.dumps({"vpath": vpath, **v_names(vpath), "smi": smi},
+                         default=float))
+        return
     if args.only_assembly:
         log("H2 and H3 alone (not a pass of this script):")
         assembly_edge_phase(dev, args.seed)
@@ -3178,6 +3642,13 @@ def main():
                       gen_counters)
     del spec_m
 
+    log("V-path phase (zy direct mode, obspred, IC0):")
+    vpath = vpath_phase(locs, z, zb, locs_pred, args.m, big,
+                        (MS.matern_solve_e0, MS.matern_solve_e0_bwd,
+                         counters[1:]), dev, args.seed, args.profile)
+    vnames = v_names(vpath)
+    log(f"V path (f32): {vnames}")
+
     if args.profile:
         profile_eval(spec, z, grad=False)
         profile_eval(spec, z, grad=True)
@@ -3247,7 +3718,7 @@ def main():
     print(json.dumps({"slice": res, "grad": grad_json, "general": gen_json,
                       "estimate": est, "prediction": pred, "vl": vl,
                       "mra": mra, "selected": sel, "nuts": nuts,
-                      **bench_names, "n": args.n, "m": args.m,
+                      "vpath": vpath, **bench_names, **vnames, "n": args.n, "m": args.m,
                       "spec_s": spec_s, "plan_s": plan_s,
                       "peak_bytes": peak, "grad_peak_bytes": grad_peak,
                       "general_peak_bytes": gen_peak,

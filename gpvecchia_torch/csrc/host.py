@@ -1,5 +1,6 @@
 """Native host ops (ordering, neighbor search, SGV selection, the MRA knot
-tree) via ctypes.
+tree, the symbolic Cholesky fill and the triangular-solve levels) via
+ctypes.
 
 The C++ source is the port's own ``hostops.cpp`` beside this module, a
 byte-identical copy of the JAX package's ``gpvecchia_tpu/csrc/hostops.cpp``
@@ -82,8 +83,16 @@ def get_lib():
                                    ctypes.c_int64, u8p]
         lib.mra_tree.argtypes = [f64p, ctypes.c_int64, ctypes.c_int, i64p,
                                  i64p, ctypes.c_int64, i64p, i64p, i64p]
+        lib.symbolic_chol_count.argtypes = [i64p, i64p, ctypes.c_int64,
+                                            i64p, i64p]
+        lib.symbolic_chol_count.restype = ctypes.c_int64
+        lib.symbolic_chol_fill.argtypes = [i64p, i64p, ctypes.c_int64,
+                                           i64p, i64p, i64p]
+        lib.solve_levels_fwd.argtypes = [i64p, i64p, ctypes.c_int64, i64p]
+        lib.solve_levels_bwd.argtypes = [i64p, i64p, ctypes.c_int64, i64p]
         for fn in (lib.maxmin_exact, lib.ordered_nn, lib.sgv_select,
-                   lib.mra_tree):
+                   lib.mra_tree, lib.symbolic_chol_fill,
+                   lib.solve_levels_fwd, lib.solve_levels_bwd):
             fn.restype = None
         _lib = lib
         return _lib
@@ -150,3 +159,60 @@ def mra_tree(locsord: np.ndarray, J, M: int, r):
     if finest_count > 0:
         eff_r[M] = finest_total // finest_count
     return chain_next, chain_len, {"M": eff_M, "r": eff_r}
+
+
+def _symbolic(indptr: np.ndarray, indices: np.ndarray, n: int):
+    """(colptr, rows, parent, row_level) of the Cholesky fill; None if the
+    library is unavailable."""
+    lib = get_lib()
+    if lib is None:
+        return None
+    indptr = np.ascontiguousarray(indptr, dtype=np.int64)
+    indices = np.ascontiguousarray(indices, dtype=np.int64)
+    parent = np.empty(n, dtype=np.int64)
+    colcount = np.empty(n, dtype=np.int64)
+    lib.symbolic_chol_count(indptr, indices, n, parent, colcount)
+    colptr = np.zeros(n + 1, dtype=np.int64)
+    np.cumsum(colcount, out=colptr[1:])
+    rows = np.empty(colptr[-1], dtype=np.int64)
+    row_level = np.empty(n, dtype=np.int64)
+    lib.symbolic_chol_fill(indptr, indices, n, colptr, rows, row_level)
+    return colptr, rows, parent, row_level
+
+
+def symbolic_chol_flat(indptr: np.ndarray, indices: np.ndarray, n: int):
+    """(colptr, rows, row_level): the CSC pattern of the Cholesky fill of
+    the symmetric matrix whose lower pattern is the CSR (indptr, indices),
+    rows ascending with the diagonal first; None if the library is
+    unavailable."""
+    out = _symbolic(indptr, indices, n)
+    return None if out is None else (out[0], out[1], out[3])
+
+
+def symbolic_chol(indptr: np.ndarray, indices: np.ndarray, n: int):
+    """(col_arrays, parent, row_level) of the Cholesky fill; None if the
+    library is unavailable."""
+    out = _symbolic(indptr, indices, n)
+    if out is None:
+        return None
+    colptr, rows, parent, row_level = out
+    return ([rows[colptr[j]:colptr[j + 1]] for j in range(n)], parent,
+            row_level)
+
+
+def solve_levels(colptr: np.ndarray, rows: np.ndarray, n: int,
+                 direction: str):
+    """Per-column dependency levels (from 1) of a triangular solve with the
+    lower CSC pattern (colptr, rows): 'fwd' for L x = b, else L^T x = b;
+    None if the library is unavailable."""
+    lib = get_lib()
+    if lib is None:
+        return None
+    colptr = np.ascontiguousarray(colptr, dtype=np.int64)
+    rows = np.ascontiguousarray(rows, dtype=np.int64)
+    level = np.empty(n, dtype=np.int64)
+    if direction == "fwd":
+        lib.solve_levels_fwd(colptr, rows, n, level)
+    else:
+        lib.solve_levels_bwd(colptr, rows, n, level)
+    return level

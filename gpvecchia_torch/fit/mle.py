@@ -159,10 +159,10 @@ def vecchia_pred(vecchia_est, locs_pred, X_pred=None, m=30, *, device="cuda",
                  dtype=torch.float64, **specify_kwargs):
     """Predictions with estimated parameters (R/vecchia_wrappers.R:134-161).
 
-    Runs on the specs ``vecchia_prediction`` takes: pass
-    ``cond_yz="SGV", ordering_pred="general"`` (or y/z/SGVT); the default
-    spec with prediction points (cond_yz 'zy', obspred ordering) is not
-    ported and raises ``NotImplementedError``.
+    The default spec with prediction points (cond_yz 'zy', the obspred
+    ordering) runs the per-entry V factor's direct mode, with exact
+    prediction variances; ``specify_kwargs`` pass any other spec to
+    ``vecchia_specify``.
     """
     locs_pred = np.asarray(locs_pred, np.float64)
     spec = vecchia_specify(vecchia_est["locs"], m, locs_pred=locs_pred,

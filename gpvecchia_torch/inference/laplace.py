@@ -3,13 +3,14 @@
 The port of the JAX package's ``inference/laplace.py``: Newton–Raphson on
 the latent posterior mode with Gaussian pseudo-data whose pseudo-nuggets
 come from the likelihood's score and Hessian (GPvecchia
-R/vecchia_laplace_NR.R).  Each iteration is one posterior mean through the
-multifrontal factor (``prediction._posterior_core``: H1 for the U entries,
-H2-H4 for the factor, a back-substitution); the iterate stays on the
-device, and the loop's only host read per iteration is the convergence
-test on the step (which also stops on NaN), as ``lax.while_loop`` is in
-the JAX package.  Specs whose plan is not the multifrontal 'chol' mode
-raise ``NotImplementedError``.
+R/vecchia_laplace_NR.R).  The iterate stays on the device, and the loop's
+only host read per iteration is the convergence test on the step (which
+also stops on NaN), as ``lax.while_loop`` is in the JAX package.  Each
+iteration is one posterior mean through the
+multifrontal factor (``prediction._posterior_core``: H1 for the U
+entries, H2-H4 for the factor, a back-substitution) or, on the plans the
+multifrontal engine does not take (the zy family, obspred specs, IC0),
+through the per-entry V factor and its two level-scheduled solves.
 
 Likelihood models (score/hess/llh/link quadruples, reference lines):
   logistic R:213-224, poisson :227-239, gaussian :242-250, gamma :253-281,
@@ -29,8 +30,7 @@ from ..plan import get_plan
 from ..spec import vecchia_specify
 from .likelihood import (_covmodel_key, _device_arrays, _dispatch_covmodel,
                          resolve_device, vecchia_likelihood)
-from .prediction import (_check_mf, _numpy, _posterior_core,
-                         vecchia_prediction)
+from .prediction import _numpy, _posterior_core, vecchia_prediction
 
 __all__ = ["calculate_posterior_VL", "vecchia_laplace_likelihood",
            "vecchia_laplace_likelihood_from_posterior",
@@ -158,7 +158,6 @@ def _vl_posterior_fn(spec, model, covmodel, obs_mask, device, dtype):
     (y, delta, iters, bad, pseudo_full, nug_full, D, mu_obs), all tensors on
     ``device`` but the Python numbers delta, iters and bad."""
     plan = get_plan(spec)
-    _check_mf(plan, "Vecchia-Laplace")
     cov = _dispatch_covmodel(spec, covmodel, device, dtype)
     dev = _device_arrays(plan, device, dtype)
     obs_mask_t = torch.as_tensor(obs_mask, device=device)

@@ -1,12 +1,19 @@
-"""Gaussian Vecchia log-likelihood, 'chol' (multifrontal) mode, in PyTorch.
+"""Gaussian Vecchia log-likelihood in PyTorch.
 
-The port of the JAX package's ``inference/likelihood.py`` for specs whose
-plan has ``use_mf`` (cond_yz in y/z/SGV/SGVT without prediction points),
-plus the degenerate all-exact case (no latent variable left).  The
-numerator comes from the U columns; the denominator from the multifrontal
-factor of W = U_y U_y^T + D, whose RHS z2 = U_y z1 rides the tree as an
-augmented row (``linalg/multifrontal.py``).  Other modes (obspred, the zy
-family, IC0) raise ``NotImplementedError``.
+The port of the JAX package's ``inference/likelihood.py``.  The numerator
+comes from the U columns; the denominator from a factor of W = U_y U_y^T +
+D, by one of two engines, as in the JAX package:
+
+* plans with ``use_mf`` (cond_yz y/z/SGV/SGVT without prediction points or
+  with ``ordering_pred="general"``): the multifrontal factor, whose RHS z2
+  = U_y z1 rides the tree as an augmented row (``linalg/multifrontal.py``);
+* every other plan (the zy family's 'direct' mode, the 'obspred' mode of
+  specs with obspred prediction points, and IC0): the per-entry V factor
+  (``plan.ensure_v``, ``compute_v_factor``), with z2 by ``pair_sum`` and a
+  level-scheduled forward solve (``linalg/trisolve.py``).
+
+The degenerate all-exact case (no latent variable left) has no
+denominator.
 
 The covariance model is any the JAX package takes (``_dispatch_covmodel``):
 'matern' (closed-form smoothness on H1, any other on the packed path and
@@ -33,9 +40,13 @@ import torch
 from ..kernels.covariance import make_kernel_fn
 from ..kernels.u_entries import u_entries
 from ..linalg.multifrontal import mf_device_arrays, mf_factor
-from ..plan import get_mf_plan, get_plan, sel_pair_slots_packed
+from ..linalg.sparse import (device_schedule, pair_sum, spread_pads,
+                             with_zeros)
+from ..linalg.trisolve import device_blocks, forward_solve
+from ..plan import ensure_v, get_mf_plan, get_plan, sel_pair_slots_packed
 
-__all__ = ["vecchia_likelihood", "loglik_fn", "zero_nugget_variant"]
+__all__ = ["vecchia_likelihood", "loglik_fn", "zero_nugget_variant",
+           "compute_v_factor"]
 
 
 def _device_arrays(plan, device, dtype):
@@ -69,8 +80,104 @@ def _device_arrays(plan, device, dtype):
             kp = np.flatnonzero(plan.known_pts)
             dev["known_pt"] = t(kp, torch.long)
             dev["known_obs"] = t(plan.obs_pos[kp], torch.long)
+    elif plan.n_lat > 0:
+        dev.update(_v_device_arrays(ensure_v(plan), device))
     plan.cache[key] = dev
     return dev
+
+
+def _v_device_arrays(plan, device):
+    """The per-entry V engine's schedules on ``device``: everything a
+    factor, solve or pair sum reads is put there once, each gather's pads
+    spread over zeros of their own (``sparse.spread_pads``)."""
+    def t(a):
+        return torch.as_tensor(np.ascontiguousarray(a)).to(device,
+                                                            torch.long)
+
+    factor, zv = [], 1
+    for b in plan.factor_buckets:
+        dcls, ocls, zd = [], [], 1
+        for pa, pb, _ in b.diag_classes:
+            (pa, k), (pb, _) = (spread_pads(a, plan.v_phys_size)
+                                for a in (pa, pb))
+            dcls.append((t(pa), t(pb)))
+            zv = max(zv, k)
+        n_diag = sum(E for _, _, E in b.diag_classes)
+        for pa, pb, dloc, _ in b.off_classes:
+            (pa, k), (pb, _) = (spread_pads(a, plan.v_phys_size)
+                                for a in (pa, pb))
+            dloc, kd = spread_pads(dloc, n_diag)
+            ocls.append((t(pa), t(pb), t(dloc)))
+            zv, zd = max(zv, k), max(zd, kd)
+        factor.append((b.offsets.tolist(), b.S, dcls, ocls, zd))
+    n_all, mp1 = plan.NN.shape
+    return dict(
+        v_diag_slots=t(plan.v_diag_slots), dir_pt=t(plan.dir_pt),
+        dir_nn=t(plan.dir_nn), factor=factor, factor_zeros=zv,
+        w_sched=device_schedule(plan.w_schedule, device, sizes=(
+            n_all * mp1 + plan.n_obs + 1,) * 2),
+        z2_sched=device_schedule(plan.z2_schedule, device, sizes=(
+            n_all * mp1 + 1, n_all + plan.n_obs)),
+        fwd=device_blocks(plan.fwd_blocks, device, "fwd", plan.v_phys_size,
+                          plan.fwd_x_size),
+        bwd=device_blocks(plan.bwd_blocks, device, "bwd", plan.v_phys_size,
+                          plan.bwd_x_size),
+        fwd_x_perm=t(plan.fwd_x_perm), bwd_x_perm=t(plan.bwd_x_perm))
+
+
+def compute_v_factor(plan, dev, col, nug_ord):
+    """V's values (physical layout, ``plan.v_phys_size``) from the U
+    columns and the nuggets over the observed positions.
+
+    Direct columns are a gather of U entries.  The factored columns run
+    the up-looking factorization on the static schedule (``plan.py``): W
+    is assembled once by a pair sum straight into the physical level
+    layout; each elimination level then computes its contiguous segment
+    (diagonals first, then the off-diagonals scaled by the rsqrt of their
+    column's diagonal) and writes it in place (GPvecchia
+    R/vecchia_prediction.R:74-84, src/ic0.cpp:43-64).  The pivots are not
+    clamped: a pivot that is not positive surfaces as NaN.
+    """
+    v_dir = col[dev["dir_pt"], dev["dir_nn"]]
+    if not dev["factor"]:
+        return v_dir
+    ucat = torch.cat([col.reshape(-1), 1.0 / nug_ord, col.new_ones(1)])
+    w = pair_sum(ucat, ucat, dev["w_sched"])
+    # the zeros after the physical layout stay 0: the products' pads
+    v = torch.cat([v_dir, col.new_zeros(plan.v_phys_size - plan.n_dir
+                                        + dev["factor_zeros"])])
+    for offsets, S, dcls, ocls, zd in dev["factor"]:
+        for li, off in enumerate(offsets):
+            w_lvl = w[off:off + S]
+            pos, dparts = 0, []
+            for pa, pb in dcls:
+                E = pa.shape[1]
+                raw = w_lvl[pos:pos + E]
+                if pa.shape[-1] > 0:
+                    raw = raw - torch.sum(v[pa[li]] * v[pb[li]], dim=-1)
+                dparts.append(raw)
+                pos += E
+            draw = torch.cat(dparts) if len(dparts) > 1 else dparts[0]
+            dinv = with_zeros(torch.rsqrt(draw), zd)
+            parts = [draw * dinv[:draw.shape[0]]]  # sqrt of the diagonals
+            for pa, pb, dloc in ocls:
+                E = pa.shape[1]
+                raw = w_lvl[pos:pos + E]
+                if pa.shape[-1] > 0:
+                    raw = raw - torch.sum(v[pa[li]] * v[pb[li]], dim=-1)
+                parts.append(raw * dinv[dloc[li]])
+                pos += E
+            v[off:off + S] = torch.cat(parts) if len(parts) > 1 else parts[0]
+    return v[:plan.v_phys_size]
+
+
+def z2_of(dev, col_w, z1L, z1Z, nug_safe):
+    """z2 = U_y z1 over the latent rows (logical order): the U columns'
+    weights z1L, and -z1Z / sqrt(nugget) at each observed latent's own
+    row, as a pair sum."""
+    ucat = torch.cat([col_w.reshape(-1), col_w.new_ones(1)])
+    zcat = torch.cat([z1L, -z1Z / torch.sqrt(nug_safe)])
+    return pair_sum(ucat, zcat, dev["z2_sched"])
 
 
 def _prepare_pack(dev, z):
@@ -150,9 +257,16 @@ def _loglik_core(plan, dev, pack, covparms, nuggets, dtype, device,
     if plan.n_lat == 0:
         # every observation exact: no latent left, no denominator
         logdet_denom = quad_denom = torch.zeros((), dtype=dtype, device=device)
-    else:
+    elif plan.use_mf:
         logdet_w, quad_denom = _mf_denominator(dev, col_w, z1L, zord, nug_ord)
         logdet_denom = -logdet_w
+    else:
+        # denominator through V: z3 = V^{-1} rev(z2), logdet from V's diagonal
+        z2 = z2_of(dev, col_w, z1L, z1Z, nug_safe)
+        v = compute_v_factor(plan, dev, col_w, nug_ord)
+        z3 = forward_solve(v, z2.flip(0), dev["fwd"])
+        quad_denom = torch.sum(z3 * z3)
+        logdet_denom = -2.0 * torch.sum(torch.log(v[dev["v_diag_slots"]]))
 
     const = plan.n_obs * math.log(2.0 * math.pi)
     neg2 = logdet_num - logdet_denom + quad_num - quad_denom + const
@@ -170,14 +284,12 @@ def zero_nugget_variant(spec, nuggets):
     zero = np.asarray(nuggets) == 0.0
     if not zero.any():
         return spec
-    if spec.cond_yz in ("zy", "RVP", "LK"):
-        raise NotImplementedError(
-            "zero nuggets on a zy-family spec are not ported "
-            "(ROADMAP queue 1, per-entry V path)")
     key = ("zero_variant", zero.tobytes())
 
     def build():
         zero_by_pos = zero[spec.ord_z]
+        if spec.cond_yz in ("zy", "RVP", "LK"):
+            return _zy_zero_variant(spec, zero_by_pos)
         obs_pos = spec.obs_pos
         is_zero = spec.has_obs & np.where(
             obs_pos >= 0, zero_by_pos[np.maximum(obs_pos, 0)], False)
@@ -192,13 +304,44 @@ def zero_nugget_variant(spec, nuggets):
     return spec.cached(key, build)
 
 
-def _check_supported(plan):
-    if plan.n_lat > 0 and not plan.use_mf:
-        raise NotImplementedError(
-            f"likelihood mode {plan.mode!r} (ic0={plan.ic0}): only the "
-            "multifrontal 'chol' mode is ported to gpvecchia_torch (obspred, "
-            "the zy family and IC0: ROADMAP queue 1, item 6, the per-entry V "
-            "path)")
+def _zy_zero_variant(spec, zero_by_pos):
+    """The zero-nugget variant of a response-first (zy-family) spec.
+
+    The observation lives on the response point k < n and its latent twin
+    is t = k + n.  With a zero nugget y_t == z_k, so the twin's latent is
+    deleted, any conditioning on y_t is redirected to the (known) response
+    z_k, and the twin keeps a 'known' U column p(y_t = z_k | nb) whose self
+    slot points at k (same location) with the degenerate own-z slot
+    removed (GPvecchia R/createU.R:173-193 deletes the Inf-diagonal rows
+    and permutes).  The known column conditions on neighbor responses: it
+    carries no latent rows, so V = rev(U_y) stays the direct mode's
+    identity.
+    """
+    n = spec.n_obs
+    zpts = np.flatnonzero(zero_by_pos)
+    twins = zpts + n
+    NN = spec.NNarray.copy()
+    cond = spec.cond_latent.copy()
+    is_twin = np.zeros(spec.n_all, bool)
+    is_twin[twins] = True
+    hit = (NN >= 0) & is_twin[np.maximum(NN, 0)]
+    NN = np.where(hit, NN - n, NN)
+    cond = np.where(hit, False, cond)
+    NN[twins, 0] = zpts
+    NN[twins, 1] = -1          # own-z slot: duplicate location
+    tw = NN[twins]
+    assert not np.any(tw >= 2 * n), \
+        "zero-nugget twin conditions on a prediction latent"
+    NN[twins] = np.where(tw >= n, tw - n, tw)
+    cond[twins] = False
+    has_latent = spec.has_latent.copy()
+    has_latent[twins] = False
+    known = np.zeros(spec.n_all, bool)
+    known[twins] = True
+    return dataclasses.replace(
+        spec, NNarray=NN, cond_latent=cond & (NN >= 0),
+        has_latent=has_latent, known_pts=known, zero_obs_mask=zero_by_pos,
+        _cache={})
 
 
 def resolve_device(device) -> torch.device:
@@ -289,7 +432,6 @@ def loglik_fn(spec, covmodel="matern", *, device="cuda",
     """
     device = resolve_device(device)
     plan = get_plan(spec)
-    _check_supported(plan)
     key = ("loglik", _covmodel_key(covmodel), str(device), dtype, with_aux)
     if key in plan.cache:
         return plan.cache[key]

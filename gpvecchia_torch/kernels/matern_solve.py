@@ -45,12 +45,15 @@ from __future__ import annotations
 
 import functools
 import math
+import weakref
 
 import numpy as np
 import torch
 from torch.autograd.function import once_differentiable
 
 from ..csrc import cuda
+from ..linalg.sparse import device_schedule, segment_sum
+from ..plan import slot_sum_schedule
 from .bessel import _MAX_CLIMB, _SERIES_ITERS, _temme_mu, nu_step
 from .covariance import (GENERAL, matern, matern_dgds, matern_general_dg,
                          nu_index, safe_dist)
@@ -374,20 +377,40 @@ def matern_solve_e0_bwd(locs, NN, valid, resp, nug_point, covparms, x, xbar):
     else:
         dpar, dslot = matern_solve_e0_bwd_plain(locs, NN, valid, resp,
                                                 nug_point, covparms, x, xbar)
-    return reduce_bwd(dpar, dslot, xbar, NN, nug_point, covparms)
+    return reduce_bwd(dpar, dslot, xbar, NN, resp, nug_point, covparms)
 
 
-def reduce_bwd(dpar, dslot, xbar, NN, nug_point, covparms):
+# the nugget gradient's schedules: id(NN) -> (a weak reference to NN, the
+# schedule); an entry goes with its tensor
+_SLOT_SUMS = {}
+
+
+def reduce_bwd(dpar, dslot, xbar, NN, resp, nug_point, covparms):
     """(dcovparms, dnug_point) from H5's per-point outputs: a point whose
     xbar is 0 contributes 0 (also where its dpar and dslot are NaN: a row
-    the likelihood dropped), the rest is summed."""
+    the likelihood dropped), the rest is summed in a fixed order, so the
+    result is the same bit for bit from run to run.
+
+    dnug_point[p] sums dslot over the response slots (``resp``, the only
+    ones where dslot is not 0) with NN == p by a segment sum
+    (``linalg.sparse.segment_sum``), never through colliding writes.  Its
+    schedule (``plan.slot_sum_schedule``) is built once for each NN tensor
+    (``_SLOT_SUMS``): one NN tensor always comes with one ``resp`` (a
+    plan's NN and its response-conditioned slots)."""
     zero = _zero_rows(xbar)
     dpar = torch.where(zero, 0.0, dpar)
     dslot = torch.where(zero, 0.0, dslot)
     dcov = torch.zeros(covparms.shape, dtype=torch.float64, device=dpar.device)
     dcov[:dpar.shape[1]] = dpar.sum(0)
-    dnug = torch.zeros_like(nug_point).index_add_(
-        0, NN.reshape(-1).long(), dslot.reshape(-1))
+    ref, sched = _SLOT_SUMS.get(id(NN), (None, None))
+    if ref is None or ref() is not NN:
+        sched = device_schedule(
+            slot_sum_schedule(NN.cpu().numpy(), resp.cpu().numpy(),
+                              nug_point.shape[0]), dslot.device, pairs=False)
+        key = id(NN)
+        _SLOT_SUMS[key] = (weakref.ref(
+            NN, lambda _, key=key: _SLOT_SUMS.pop(key, None)), sched)
+    dnug = segment_sum(dslot.reshape(-1), sched)
     return dcov.to(covparms.device, covparms.dtype), dnug
 
 

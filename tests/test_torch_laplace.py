@@ -1,8 +1,8 @@
 """The port's Vecchia–Laplace inference vs the JAX package, on the CPU in
 float64: the six likelihood models' posterior mean, iteration count,
 convergence flag, pseudo-nuggets and VL log-likelihood, prediction through
-the data link with missing data, and the raises of the paths that are not
-ported.  Inputs are made with numpy from a seed.
+the data link with missing data, the zy and obspred specs of the per-entry
+V engine, and the raises of the negative binomial and of invalid data.  Inputs are made with numpy from a seed.
 """
 
 import warnings
@@ -136,9 +136,15 @@ def test_unported_and_invalid_raise(field, case):
                 GT.calculate_posterior_VL(np.full(z.size, -1.0), spec, model,
                                           COVPARMS, device="cpu")
     else:
-        with pytest.raises(NotImplementedError, match="queue 1, item 6"):
-            GT.calculate_posterior_VL(z, spec, "logistic", COVPARMS,
-                                      device="cpu")
+        # the per-entry V engine's specs: the JAX package's posterior
+        got = GT.calculate_posterior_VL(z, spec, "logistic", COVPARMS,
+                                        device="cpu")
+        want = JL.calculate_posterior_VL(z, jax_spec(spec), "logistic",
+                                         COVPARMS)
+        assert (got["iter"], got["cnvgd"]) == (want["iter"], want["cnvgd"])
+        np.testing.assert_allclose(got["mean"], want["mean"], rtol=0,
+                                   atol=MEAN_ATOL)
+        np.testing.assert_allclose(got["D"], want["D"], rtol=REL)
 
 
 def test_interweaved_likelihood_of_a_zy_spec(field):

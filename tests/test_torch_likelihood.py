@@ -125,27 +125,30 @@ def test_golden_values(cond, want):
 
 @pytest.mark.parametrize("case", ["general_nu", "esqe", "zy"])
 def test_unported_paths_raise(case):
-    """Each covariance runs on the 'chol' path only: a general smoothness
-    on an IC0 spec, esqe on a spec with prediction points (obspred) and the
-    zy family still raise."""
+    """The specs that raised before the per-entry V engine was ported now
+    match the JAX package: a general smoothness on an IC0 spec, esqe on a
+    spec with obspred prediction points and the zy family."""
     locs, z, _ = _data(n=40)
     with warnings.catch_warnings():
         warnings.simplefilter("ignore")
         if case == "general_nu":
-            spec = GT.vecchia_specify(locs, m=5, ic0=True)
+            kw = dict(m=5, ic0=True)
             args = ((1.0, 0.3, 0.8), 0.2)
-            kw = {}
+            cov = {}
         elif case == "esqe":
-            spec = GT.vecchia_specify(locs, m=5, locs_pred=locs[:4] + 0.01,
-                                      ordering_pred="obspred")
+            kw = dict(m=5, locs_pred=locs[:4] + 0.01,
+                      ordering_pred="obspred")
             args = ((0.8, 0.5, 0.4, 0.2), 0.2)
-            kw = {"covmodel": "esqe"}
+            cov = {"covmodel": "esqe"}
         else:
-            spec = GT.vecchia_specify(locs, m=5, cond_yz="zy")
+            kw = dict(m=5, cond_yz="zy")
             args = ((1.0, 0.3, 0.5), 0.2)
-            kw = {}
-        with pytest.raises(NotImplementedError):
-            GT.vecchia_likelihood(z, spec, *args, device="cpu", **kw)
+            cov = {}
+        ll_t = GT.vecchia_likelihood(z, GT.vecchia_specify(locs, **kw),
+                                     *args, device="cpu", **cov)
+        ll_j = GJ.vecchia_likelihood(z, GJ.vecchia_specify(locs, **kw),
+                                     *args, **cov)
+    np.testing.assert_allclose(ll_t, ll_j, rtol=REL)
 
 
 def test_zcache_follows_in_place_updates():

@@ -320,15 +320,20 @@ def test_vl_on_mra_spec_matches_jax(model):
 
 
 def test_mra_with_obspred_prediction_points_raises():
-    """An MRA spec with prediction points in the obspred ordering is not
-    the multifrontal mode: the likelihood and the prediction raise, naming
-    the per-entry V path (ROADMAP queue 1, item 6)."""
+    """An MRA spec with prediction points in the obspred ordering runs the
+    per-entry V engine's obspred mode: the likelihood and the prediction
+    (exact prediction variances included) match the JAX package."""
     locs, z = _data(n=60, seed=12)
     lp = np.random.default_rng(13).uniform(size=(10, 2))
     st, sj = _specs(locs, m=6, conditioning="mra", locs_pred=lp)
     _assert_spec_equal(st, sj)
     assert st.ordering_pred == "obspred"
-    with pytest.raises(NotImplementedError, match="item 6"):
-        GT.vecchia_likelihood(z, st, COVPARMS, NUG, device="cpu")
-    with pytest.raises(NotImplementedError, match="item 6"):
-        GT.vecchia_prediction(z, st, COVPARMS, NUG, device="cpu")
+    ll = GT.vecchia_likelihood(z, st, COVPARMS, NUG, device="cpu")
+    assert abs(ll - GJ.vecchia_likelihood(z, sj, COVPARMS, NUG)) \
+        <= REL * abs(ll)
+    got = GT.vecchia_prediction(z, st, COVPARMS, NUG, device="cpu")
+    want = jax_prediction(z, sj, COVPARMS, NUG)
+    for k in ("mu_obs", "mu_pred", "var_obs", "var_pred"):
+        np.testing.assert_allclose(got[k], want[k], rtol=0,
+                                   atol=MEAN_ATOL * np.max(np.abs(want[k])),
+                                   err_msg=k)

@@ -5,8 +5,9 @@ and the dense reference, on the CPU in float64.
 random element sets against the JAX functions and a dense W;
 ``vecchia_prediction`` (means and selected-inverse variances) against the
 JAX package's and ``reference_impl.dense_posterior`` on 'chol'-mode specs;
-``vecchia_lincomb`` and ``V2covmat`` on the kept factor; and the raises of
-the paths that are not ported.  Inputs are made with numpy from a seed.
+``vecchia_lincomb`` and ``V2covmat`` on the kept factor; and prediction on
+the per-entry V engine's specs (obspred, zy, IC0) and ``vecchia_pred``'s
+default spec.  Inputs are made with numpy from a seed.
 """
 
 import dataclasses
@@ -281,44 +282,55 @@ def test_lincomb_with_known_points_raises(data):
 
 @pytest.mark.parametrize("case", ["obspred", "zy", "ic0", "per_entry_V"])
 def test_unported_paths_raise(data, case):
+    """The paths that raised before the per-entry V engine was ported now
+    match the JAX package: prediction on obspred SGV, zy and IC0 specs (the
+    exact prediction variances of obspred specs included), and
+    ``vecchia_lincomb`` / ``V2covmat`` on a per-entry V factor."""
     locs, locs_pred, z = data
+    locs, locs_pred, z = locs[:60], locs_pred[:10], z[:60]
     with warnings.catch_warnings():
         warnings.simplefilter("ignore")
         if case == "obspred":
             spec = GT.vecchia_specify(locs, m=5, locs_pred=locs_pred,
                                       cond_yz="SGV", ordering_pred="obspred")
-        elif case == "zy":
-            spec = GT.vecchia_specify(locs, m=5, cond_yz="zy")
+        elif case in ("zy", "per_entry_V"):
+            spec = GT.vecchia_specify(locs, m=5, cond_yz="zy",
+                                      locs_pred=locs_pred)
         else:
-            spec = GT.vecchia_specify(locs, m=5, ic0=case == "ic0")
+            spec = GT.vecchia_specify(locs, m=5, ic0=True)
+        got = GT.vecchia_prediction(z, spec, COVPARMS, NUG, device="cpu")
+        want = jax_prediction(z, jax_spec(spec), COVPARMS, NUG)
     if case == "per_entry_V":
-        with pytest.raises(NotImplementedError, match="item 6"):
-            vecchia_lincomb(np.ones((1, z.size)), spec, np.ones(5))
-        with pytest.raises(NotImplementedError, match="item 6"):
-            V2covmat(spec, np.ones(5))
+        sj = jax_spec(spec)
+        H = np.random.default_rng(3).normal(size=(2, spec.ord.size))
+        H[:, :spec.n_obs] = 0.0
+        Sp = jax_V2covmat(sj, want["V"])["Sigma_pred"]
+        Hp = H[:, spec.n_obs:]
+        assert _rel(vecchia_lincomb(H, spec, got["V"], cov_mat=True),
+                    Hp @ Sp @ Hp.T) <= REL
+        assert _rel(V2covmat(spec, got["V"])["Sigma_pred"], Sp) <= REL
         return
-    with pytest.raises(NotImplementedError, match="queue 1, item 6"):
-        GT.vecchia_prediction(z, spec, COVPARMS, NUG, device="cpu")
+    for k in ("mu_obs", "mu_pred", "var_obs", "var_pred"):
+        if want[k] is not None and np.size(want[k]):
+            assert _rel(got[k], want[k]) <= REL, k
 
 
 def test_vecchia_pred_matches_jax(data):
-    """Prediction with an estimate (its trend added back) on a spec that
-    runs here; the default spec (zy, obspred) is not ported and raises."""
+    """Prediction with an estimate (its trend added back), on the default
+    spec (zy with the obspred ordering: the per-entry V factor's direct
+    mode, exact prediction variances) and on a multifrontal one."""
     from gpvecchia_tpu.fit.mle import vecchia_pred as jax_vecchia_pred
     from gpvecchia_torch.fit.mle import vecchia_pred
     locs, locs_pred, z = data
     est = dict(z=z, locs=locs, theta_hat=np.array([1.0, 0.3, 0.5, NUG]),
                covmodel="matern", trend="constant", beta_hat=np.array([2.0]))
-    got = vecchia_pred(est, locs_pred, m=10, cond_yz="y",
-                       ordering_pred="general", device="cpu")
-    want = jax_vecchia_pred(est, locs_pred, m=10, cond_yz="y",
-                            ordering_pred="general")
-    for k in ("mean_pred", "var_pred"):
-        assert _rel(got[k], want[k]) <= REL
-    with warnings.catch_warnings():
-        warnings.simplefilter("ignore")
-        with pytest.raises(NotImplementedError, match="item 6"):
-            vecchia_pred(est, locs_pred, m=10, device="cpu")
+    for kw in (dict(cond_yz="y", ordering_pred="general"), {}):
+        with warnings.catch_warnings():
+            warnings.simplefilter("ignore")
+            got = vecchia_pred(est, locs_pred, m=10, device="cpu", **kw)
+            want = jax_vecchia_pred(est, locs_pred, m=10, **kw)
+        for k in ("mean_pred", "var_pred"):
+            assert _rel(got[k], want[k]) <= REL, (kw, k)
 
 
 def test_pred_cache_tells_matrices_apart(data):
