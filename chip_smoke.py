@@ -132,10 +132,28 @@ Builds the host library and the CUDA kernels from this checkout, then
    against their plain versions at the zy spec's latent rows, each
    conditioned on its own response at distance 0.  The f32 times are in
    the summary as zy_eval_ms, zy_vg_ms, zy_pred_mean_ms, ... .
+12. mesh phase: the sharded path (``parallel/mesh.py``).  The run's SGV
+   spec is written once with ``save_spec`` and every rank reads it with
+   ``load_spec`` (both timed beside the spec's build); the kernels are
+   built before, so the ranks load them.  ``run_local`` starts (a) one
+   rank on NCCL and (b) two ranks on gloo, both on cuda:0 (NCCL refuses two
+   ranks on one card; with four cards visible, (b) runs on two of them and
+   (c) four NCCL ranks, one a card).  Each rank runs the sharded f32
+   evaluation and value+grad (medians of 5), two value+grads bit for bit, the sharded
+   posterior mean and variances, and at the default size the same in f64;
+   it prints its leaves and elements, its sharded and replicated depths,
+   the bytes exchanged and H1-H7's launches over one evaluation and one
+   value+grad (each must launch), and its peak memory.  f32 is held to the
+   single-process f64 value on the card (SLICE_F32_REL, posterior
+   PRED_F32_REL), f64 to it at MESH_F64_REL (gradient MESH_GRAD_F64_REL of
+   |g|max, posterior MESH_POST_F64_REL).  In (b) ``sample_posterior`` over
+   a (chains=2, rows=1) mesh on phase 10's spec must give the draws of
+   mesh=None.
    --n 1000000 --m 40 runs phases 2-4 and 6 in f32 only (6 holds f32
    against one f64 run on the card), phases 8 and 10 without their
-   default-size parts, and phase 11 on the zy and default prediction
-   specs only, without the CPU check.
+   default-size parts, phase 11 on the zy and default prediction specs
+   only, without the CPU check, and phase 12 in f32 only (its NUTS
+   reference, mesh=None, run for it on the card).
 
 The kernel phase also computes each kernel's bound (the least time the card
 could take: the larger of the bytes its inputs and outputs need over the
@@ -151,7 +169,10 @@ obspred prediction mean and its exact prediction variances (at n > 1e5
 the zy value+grad and the default prediction spec's mean and exact
 variances).
 
-``--only-vpath`` is a tool for work on the per-entry V engine: it builds,
+``--only-mesh`` is a tool for work on the sharded path: it builds, makes
+the spec of --n and --m and runs the mesh phase alone (its NUTS reference
+then run for it), without the final device line.  ``--only-vpath`` is a
+tool for work on the per-entry V engine: it builds,
 holds two f32 value+grads of the run's SGV spec bit for bit, runs the
 V-path phase (and with ``--profile`` its profiles) at ``--n``/``--m`` and
 exits without the final device line.  ``--only-h4`` is a tool for work on
@@ -175,6 +196,8 @@ from __future__ import annotations
 
 import argparse
 import json
+import os
+import shutil
 import statistics
 import subprocess
 import sys
@@ -2896,7 +2919,8 @@ def nuts_phase(spec_m, locs, z, big, counters, gen_counters):
     ``sample_posterior`` on an MRA spec of the first NUTS_N points, m =
     NUTS_M (smoothness sampled: the general H1 and H5, ``gen_counters``),
     f64, on the card and on the CPU plain path from one seed: the draws
-    must agree to NUTS_REL relative."""
+    must agree to NUTS_REL relative.  Returns (results, (spec, z, keywords,
+    the card's draws) of (b), None at n > 1e5)."""
     import gpvecchia_torch as gt
     from gpvecchia_torch.fit import mcmc as TM
     rng = TM.TorchKeys()
@@ -2939,7 +2963,7 @@ def nuts_phase(spec_m, locs, z, big, counters, gen_counters):
         raise AssertionError("cfg5b: the transition at the small step "
                              "diverged")
     if big:
-        return res
+        return res, None
     nb = min(NUTS_N, len(z))
     spec = gt.vecchia_specify(locs[:nb], m=NUTS_M, conditioning="mra")
     kw = dict(num_warmup=NUTS_WARMUP, num_samples=NUTS_SAMPLES,
@@ -2982,7 +3006,7 @@ def nuts_phase(spec_m, locs, z, big, counters, gen_counters):
             "bounds the margin of the decision that parted them")
         raise AssertionError("sample_posterior: the card's chains disagree "
                              "with the CPU's")
-    return res
+    return res, (spec, z[:nb], kw, out["cuda"])
 
 
 # ---------------------------------------------------------------- V path --
@@ -3387,6 +3411,279 @@ def v_names(vp):
     return out
 
 
+# ------------------------------------------------------------------ mesh --
+
+# a rank run's time limit (spawn, set-up and every computation of a rank)
+MESH_TIMEOUT = 900.0
+# sharded vs single-process on the card, f64 at the default size: value
+# relative, gradient as max |difference| over the reference's |g|max in
+# (covparms, nugget), posterior mean and variances over each one's max;
+# f32 sharded vs single-process f64: SLICE_F32_REL (value), PRED_F32_REL
+# (posterior)
+MESH_F64_REL, MESH_GRAD_F64_REL, MESH_POST_F64_REL = 1e-10, 1e-8, 1e-10
+
+
+def _mesh_counters():
+    from gpvecchia_torch.kernels import matern_solve as MS
+    from gpvecchia_torch.linalg import frontal as FR
+    return (MS.matern_solve_e0, FR.leaf_assemble, FR.extend_add,
+            FR.front_factor, MS.matern_solve_e0_bwd, FR.extend_add_bwd,
+            FR.leaf_assemble_bwd)
+
+
+def _grad_rel(got, ref):
+    """max |got - ref| over (covparms, nugget) jointly, over |ref|max."""
+    g = np.concatenate([np.ravel(got[1]), np.ravel(got[2])])
+    r = np.concatenate([np.ravel(ref[1]), np.ravel(ref[2])])
+    return float(np.abs(g - r).max() / np.abs(r).max())
+
+
+def mesh_rank(rank, world, spec_path, z, nuts_path, nuts_z, nuts_kw, big):
+    """One rank of the mesh phase, run by ``parallel.mesh.run_local``: the
+    spec from ``spec_path`` (``load_spec``), the sharded f32 evaluation and
+    value+grad (timed, medians of 5; the kernels' launch counts and the
+    bytes exchanged over one evaluation and one value+grad; two value+grads
+    compared bit for bit), at the default size also f64, the sharded
+    posterior, and with two ranks ``sample_posterior`` over a (chains=2,
+    rows=1) mesh on the NUTS spec.  Returns numpy data."""
+    import torch.distributed as dist
+    from gpvecchia_torch.csrc import cuda, host
+    from gpvecchia_torch.parallel import mesh as PM
+    from gpvecchia_torch.plan import get_plan
+    from gpvecchia_torch.utils.serialize import load_spec
+    dev = torch.device("cuda", torch.cuda.current_device())
+    out = dict(rank=rank, world=world, backend=dist.get_backend(),
+               device=str(dev))
+    t0 = time.perf_counter()
+    if not host.native_loaded():
+        raise RuntimeError("native host library failed to load")
+    cuda.get_lib()
+    out["lib_s"] = time.perf_counter() - t0
+    # the backend's all_reduce on a CUDA tensor, as every exchange runs it
+    # (NCCL's collectives on the card; gloo takes CUDA tensors too)
+    t = torch.full((4,), rank + 1.0, device=dev)
+    dist.all_reduce(t)
+    out["direct_all_reduce"] = f"ok, sum {t[0].item()!r}"
+    t0 = time.perf_counter()
+    spec = load_spec(spec_path)
+    out["load_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    plan = get_plan(spec)
+    mesh = PM.make_mesh()
+    sdev = PM.shard_rows(mesh, plan, device=dev, dtype=torch.float32)
+    out["share_s"] = time.perf_counter() - t0
+    mf = sdev["mf"]
+    s = len(mf.top or [])
+    out["share"] = dict(
+        leaves=int(mf[-1]["piv_ids"].shape[0]),
+        elements=int(sdev["NN"].shape[0]),
+        sharded_depths=[s, s + len(mf) - 1], replicated_depths=s)
+    counters = _mesh_counters()
+    res = {}
+    for dt in ((torch.float32,) if big else (torch.float32, torch.float64)):
+        name = str(dt).split(".")[-1]
+        fn = PM.sharded_loglik_fn(spec, mesh=mesh, dtype=dt)
+        zt = torch.as_tensor(z, dtype=dt, device=dev)
+        for k in counters:
+            k.launches = 0
+        PM.EXCHANGES.update(calls=0, bytes=0)
+        torch.cuda.reset_peak_memory_stats(dev)
+        value = float(fn(zt, COVPARMS, NUGGET))
+        vg = value_grad(fn, zt, NUGGET)
+        r = dict(value=value, vg=vg, launches=_launches(counters),
+                 exchanges=dict(PM.EXCHANGES),
+                 peak_bytes=torch.cuda.max_memory_allocated(dev))
+        again = value_grad(fn, zt, NUGGET)
+        r["bit_equal"] = (vg[0] == again[0] and all(
+            np.array_equal(a, b) for a, b in zip(vg[1:], again[1:])))
+        r["eval_ms"] = cuda_time(lambda: fn(zt, COVPARMS, NUGGET), 5)
+        times = []
+        for _ in range(5):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            value_grad(fn, zt, NUGGET)
+            times.append((time.perf_counter() - t0) * 1e3)
+        r["vg_ms"] = statistics.median(times)
+        core, pdev = PM.sharded_posterior_core(spec, mesh=mesh, dtype=dt)
+        mu, var = core(pdev, z, COVPARMS, NUGGET)
+        r["post"] = (mu.double().cpu().numpy(), var.double().cpu().numpy())
+        r["post_ms"] = cuda_time(lambda: core(pdev, z, COVPARMS, NUGGET), 3)
+        res[name] = r
+        del fn, core, zt
+        plan.cache.clear()
+    out["res"] = res
+    out["peak_bytes"] = torch.cuda.max_memory_allocated(dev)
+    if world == 2:
+        from gpvecchia_torch.fit import mcmc as TM
+        nspec = load_spec(nuts_path)
+        cmesh = PM.make_mesh(rows=1, chains=2)
+        t0 = time.perf_counter()
+        out["nuts"] = TM.sample_posterior(nspec, nuts_z, mesh=cmesh,
+                                          device="cuda", **nuts_kw)
+        out["nuts_s"] = time.perf_counter() - t0
+    return out
+
+
+def _mesh_refs(spec, z, big):
+    """The single-process f64 references on the card: the value, at the
+    default size its gradient, and the posterior mean and variances."""
+    import gpvecchia_torch as gt
+    from gpvecchia_torch.inference.prediction import _pred_fns
+    fn = gt.loglik_fn(spec, device="cuda", dtype=torch.float64)
+    zt = torch.as_tensor(z, dtype=torch.float64, device="cuda")
+    ref = dict(value=float(fn(zt, COVPARMS, NUGGET)))
+    if not big:
+        ref["vg"] = value_grad(fn, zt, NUGGET)
+    (mean_fn, var_fn), _ = _pred_fns(spec, "matern", torch.device("cuda"),
+                                     torch.float64)
+    mu, fac = mean_fn(z, np.asarray(COVPARMS), np.full(spec.n_obs, NUGGET))
+    ref["post"] = (mu.cpu().numpy(), var_fn(fac).cpu().numpy())
+    del fn, zt, mu, fac
+    _drop_f64_caches(spec)
+    return ref
+
+
+def _mesh_check(label, o, ref, big):
+    """Every check of one rank's results against the references; returns
+    the rank's line."""
+    for name, r in o["res"].items():
+        f64 = name == "float64"
+        tol = MESH_F64_REL if f64 else SLICE_F32_REL
+        for what, v in (("evaluation", r["value"]), ("value+grad",
+                                                     r["vg"][0])):
+            rel = abs(v - ref["value"]) / abs(ref["value"])
+            if not rel <= tol:
+                raise AssertionError(f"{label} {name} {what}: {v!r} vs the "
+                                     f"single-process f64 {ref['value']!r}, "
+                                     f"{rel:.3e} > {tol:g}")
+        r["rel"] = abs(r["value"] - ref["value"]) / abs(ref["value"])
+        if f64:
+            r["grad_rel"] = _grad_rel(r["vg"], ref["vg"])
+            if not r["grad_rel"] <= MESH_GRAD_F64_REL:
+                raise AssertionError(f"{label} f64 gradient {r['vg'][1:]} "
+                                     f"vs {ref['vg'][1:]}: {r['grad_rel']:.3e}")
+        ptol = MESH_POST_F64_REL if f64 else PRED_F32_REL
+        r["post_rel"] = [float(np.abs(g - w).max() / np.abs(w).max())
+                         for g, w in zip(r.pop("post"), ref["post"])]
+        if not max(r["post_rel"]) <= ptol:
+            raise AssertionError(f"{label} {name} posterior (mean, var) "
+                                 f"{r['post_rel']} > {ptol:g}")
+        if not r["bit_equal"]:
+            raise AssertionError(f"{label} {name}: two sharded value+grads "
+                                 "differ")
+        _require(f"{label} {name}", r["launches"])
+        if not all(np.isfinite(r["vg"][1])) or not np.isfinite(r["vg"][2]):
+            raise AssertionError(f"{label} {name}: gradient not finite")
+        r["vg"] = [r["vg"][0], np.asarray(r["vg"][1]).tolist(),
+                   float(r["vg"][2])]
+
+
+def mesh_phase(spec, z, big, spec_s, nuts_ref, locs, smi):
+    """The sharded path (``parallel/mesh.py``) on the card: the spec
+    written once with ``save_spec`` and read by every rank with
+    ``load_spec`` (seconds beside the spec's build time), then (a) one
+    rank on NCCL and (b) two ranks on gloo, both on cuda:0 (NCCL refuses
+    two ranks on one card), each rank's results held against the
+    single-process f64 references on the card (``_mesh_check``), and in
+    (b) ``sample_posterior`` over a (chains=2, rows=1) mesh against
+    mesh=None on the NUTS spec, draw for draw.  With four cards or more,
+    (b)'s ranks sit on cuda:0 and cuda:1 and (c) runs four NCCL ranks, one
+    a card."""
+    import tempfile
+    import gpvecchia_torch as gt
+    from gpvecchia_torch.fit import mcmc as TM
+    from gpvecchia_torch.parallel import mesh as PM
+    from gpvecchia_torch.utils.serialize import load_spec, save_spec
+    t0 = time.perf_counter()
+    ref = _mesh_refs(spec, z, big)
+    ref_s = time.perf_counter() - t0
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_mesh_")
+    path = f"{tmp}/spec.npz"
+    t0 = time.perf_counter()
+    save_spec(spec, path)
+    save_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    back = load_spec(path)
+    load_s = time.perf_counter() - t0
+    if not np.array_equal(back.NNarray, spec.NNarray):
+        raise AssertionError("load_spec gave another spec")
+    del back
+    log(f"  spec {spec_s:.2f} s to build, save_spec {save_s:.2f} s, "
+        f"load_spec {load_s:.2f} s ({os.path.getsize(path) / 2**20:.1f} "
+        f"MiB); single-process f64 references {ref_s:.1f} s")
+    if nuts_ref is None:
+        nb = min(NUTS_N, len(z))
+        nspec = gt.vecchia_specify(locs[:nb], m=NUTS_M, conditioning="mra")
+        kw = dict(num_warmup=NUTS_WARMUP, num_samples=NUTS_SAMPLES,
+                  num_chains=NUTS_CHAINS, seed=NUTS_SEED, max_depth=NUTS_DEPTH)
+        t0 = time.perf_counter()
+        want = TM.sample_posterior(nspec, z[:nb], device="cuda", **kw)
+        log(f"  sample_posterior mesh=None on the card: "
+            f"{time.perf_counter() - t0:.1f} s")
+        nuts_ref = (nspec, z[:nb], kw, want)
+    nspec, nz, nkw, want = nuts_ref
+    npath = f"{tmp}/nuts.npz"
+    save_spec(nspec, npath)
+    torch.cuda.empty_cache()
+    out = {"save_s": save_s, "load_s": load_s, "spec_s": spec_s}
+    try:
+        runs = [("(a) nccl", 1, "nccl"), ("(b) gloo", 2, "gloo")]
+        if torch.cuda.device_count() >= 4:
+            # a rank on each of four cards: the exchanges cross NVLink
+            runs.append(("(c) nccl", 4, "nccl"))
+        for label, world, backend in runs:
+            t0 = time.perf_counter()
+            ranks = PM.run_local(mesh_rank, world, path, z, npath, nz, nkw,
+                                 big, backend=backend, device="cuda",
+                                 timeout=MESH_TIMEOUT)
+            secs = time.perf_counter() - t0
+            log(f"  {label}: {world} rank(s), backend {backend}, devices "
+                f"{[o['device'] for o in ranks]}, {secs:.1f} s; the "
+                f"backend's own CUDA all_reduce: "
+                f"{[o['direct_all_reduce'] for o in ranks]}")
+            vals = {o["res"]["float32"]["value"] for o in ranks}
+            if len(vals) != 1:
+                raise AssertionError(f"{label}: the ranks' values differ: "
+                                     f"{vals}")
+            for o in ranks:
+                _mesh_check(f"{label} rank {o['rank']}", o, ref, big)
+                for name, r in o["res"].items():
+                    log(f"    rank {o['rank']} {name}: leaves "
+                        f"{o['share']['leaves']}, elements "
+                        f"{o['share']['elements']}, sharded depths "
+                        f"{o['share']['sharded_depths']}, replicated "
+                        f"{o['share']['replicated_depths']}; value "
+                        f"{r['value']!r} (rel {r['rel']:.3e}"
+                        + (f", grad {r['grad_rel']:.3e}" if "grad_rel" in r
+                           else "")
+                        + f"), posterior {[f'{x:.2e}' for x in r['post_rel']]}"
+                        f"; exchanged {r['exchanges']['bytes']} B in "
+                        f"{r['exchanges']['calls']} calls (eval + "
+                        f"value+grad); launches {r['launches']}; peak "
+                        f"{r['peak_bytes'] / 2**30:.3f} GiB; eval "
+                        f"{r['eval_ms']:.2f} ms, value+grad {r['vg_ms']:.2f}"
+                        f" ms, posterior {r['post_ms']:.2f} ms; spec load "
+                        f"{o['load_s']:.2f} s, share {o['share_s']:.2f} s")
+                if world == 2:
+                    got = o.pop("nuts")
+                    same = all(np.array_equal(got[k], want[k]) for k in (
+                        "samples_log", "accept_stats", "step_size"))
+                    rel = float(np.max(np.abs(got["samples"] - want["samples"])
+                                       / np.abs(want["samples"])))
+                    o["nuts"] = dict(bit_equal=same, rel=rel, s=o["nuts_s"])
+                    log(f"    rank {o['rank']} sample_posterior (chains=2, "
+                        f"rows=1) {o['nuts_s']:.1f} s: draws bit-equal to "
+                        f"mesh=None {same}, rel {rel:.3e} (tol {NUTS_REL:g})")
+                    if not rel <= NUTS_REL:
+                        raise AssertionError("mesh: sample_posterior over the "
+                                             "chains axis disagrees")
+            out[label] = dict(seconds=secs, ranks=ranks)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    log(f"  the medians above: {smi}; not compared with anything")
+    return out
+
+
 def _jsonable(r, summary=False):
     """(loglik, dcovparms, dnuggets) as JSON values; ``summary`` keeps only
     the largest |dnuggets| of a vector."""
@@ -3420,6 +3717,10 @@ def main():
                          "bit for bit, the V-path phase at --n and --m "
                          "(with --profile its profiles), and nothing else; "
                          "prints no final device line")
+    ap.add_argument("--only-mesh", action="store_true",
+                    help="a tool for work on the sharded path: build, the "
+                         "spec of --n and --m, the mesh phase, and nothing "
+                         "else; prints no final device line")
     ap.add_argument("--only-h15", action="store_true",
                     help="a tool for work on H1 and H5: build, their edge "
                          "shapes and both kernels at F = 11, 21, 41 and 72 "
@@ -3517,6 +3818,11 @@ def main():
                               FR.front_factor)), dev, args.seed, args.profile)
         print(json.dumps({"vpath": vpath, **v_names(vpath), "smi": smi},
                          default=float))
+        return
+    if args.only_mesh:
+        log("the mesh phase alone (not a pass of this script):")
+        mesh = mesh_phase(spec, z, args.n > 100_000, spec_s, None, locs, smi)
+        print(json.dumps({"mesh": mesh, "smi": smi}, default=float))
         return
     if args.only_assembly:
         log("H2 and H3 alone (not a pass of this script):")
@@ -3638,8 +3944,8 @@ def main():
         log("selected-layout phase (MRA spec):")
         sel = selected_phase(spec_m, z, (MS.solve_e0, MS.solve_e0_bwd))
     log("NUTS phase (bench.py cfg5b, sample_posterior):")
-    nuts = nuts_phase(spec_m, locs, z, big, counters + bwd_counters,
-                      gen_counters)
+    nuts, nuts_ref = nuts_phase(spec_m, locs, z, big,
+                                counters + bwd_counters, gen_counters)
     del spec_m
 
     log("V-path phase (zy direct mode, obspred, IC0):")
@@ -3648,6 +3954,11 @@ def main():
                          counters[1:]), dev, args.seed, args.profile)
     vnames = v_names(vpath)
     log(f"V path (f32): {vnames}")
+
+    log("mesh phase (parallel/mesh.py: NCCL with one rank, gloo with two "
+        "ranks on cuda:0):")
+    mesh = mesh_phase(spec, z, big, spec_s, nuts_ref, locs, smi)
+    del nuts_ref
 
     if args.profile:
         profile_eval(spec, z, grad=False)
@@ -3718,7 +4029,8 @@ def main():
     print(json.dumps({"slice": res, "grad": grad_json, "general": gen_json,
                       "estimate": est, "prediction": pred, "vl": vl,
                       "mra": mra, "selected": sel, "nuts": nuts,
-                      "vpath": vpath, **bench_names, **vnames, "n": args.n, "m": args.m,
+                      "vpath": vpath, "mesh": mesh, **bench_names,
+                      **vnames, "n": args.n, "m": args.m,
                       "spec_s": spec_s, "plan_s": plan_s,
                       "peak_bytes": peak, "grad_peak_bytes": grad_peak,
                       "general_peak_bytes": gen_peak,

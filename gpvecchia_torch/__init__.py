@@ -24,9 +24,15 @@ variances, and the exact prediction variances of obspred specs;
 Laplace for non-Gaussian data (``calculate_posterior_VL``,
 ``vecchia_laplace_likelihood``, ``vecchia_laplace_prediction``); and the
 host-side IC0 helpers ``hv.create_L``, ``hv.ic0_csr`` and
-``linalg.ichol.ichol``.  The entry points run on the card unless the
-caller passes ``device="cpu"``.  Importing the package builds nothing:
-the host library and the CUDA kernels are compiled at first use.
+``linalg.ichol.ichol``.  The likelihood, its gradient and the posterior
+also run sharded over processes (``parallel.mesh``, on
+``torch.distributed``: a rank's subtrees of the multifrontal tree, or its
+range of rows on the V engine, and the chains axis of
+``sample_posterior(mesh=)``), and specs are written and read as ``.npz``
+files in the JAX package's layout (``utils.serialize``: ``save_spec``,
+``load_spec``).  The entry points run on the card unless the caller passes
+``device="cpu"``.  Importing the package builds nothing: the host library
+and the CUDA kernels are compiled at first use.
 """
 
 from .spec import VecchiaSpec, vecchia_specify

@@ -315,12 +315,23 @@ def sample_posterior(spec, z, nuggets=None, covmodel="matern",
     of numpy arrays: 'samples' (chains, draws, dim) on the original (exp)
     scale, 'samples_log', 'accept_stats' (chains, draws), 'step_size'
     (chains,).  ``rng`` is the key source (``TorchKeys`` by default).
+
+    With ``mesh`` (``parallel.mesh.make_mesh``; every rank calls this with
+    the same arguments) the chains are spread over its "chains" dimension
+    in contiguous blocks (``num_chains`` must divide by its size), each
+    chain with the key and start it has without a mesh, so the draws do not
+    depend on the mesh; the ranks along "rows" of one block run the same
+    chains, and every rank returns all of them.
     """
+    block = range(num_chains)
     if mesh is not None:
-        raise NotImplementedError(
-            "sampling chains across devices is not ported to gpvecchia_torch "
-            "(ROADMAP queue 1, item 7: multi-GPU); the chains run one after "
-            "another on one device")
+        size = mesh["chains"].size()
+        if num_chains % size:
+            raise ValueError(f"sample_posterior: {num_chains} chains do not "
+                             f"divide over {size} chain ranks")
+        k = num_chains // size
+        c = mesh.get_local_rank("chains")
+        block = range(c * k, (c + 1) * k)
     device = resolve_device(device)
     rng = TorchKeys() if rng is None else rng
 
@@ -345,9 +356,33 @@ def sample_posterior(spec, z, nuggets=None, covmodel="matern",
     runs = [run_hmc(vg, theta0[c], chain_keys[c], rng,
                     num_warmup=num_warmup, num_samples=num_samples,
                     algorithm=algorithm, **hmc_kwargs)
-            for c in range(num_chains)]
+            for c in block]
     samples_log = np.stack([r[0] for r in runs])
+    astats = np.stack([r[1] for r in runs])
+    eps = np.asarray([r[2] for r in runs])
+    if mesh is not None:
+        samples_log, astats, eps = _gather_chains(
+            mesh, device, block.start, num_chains, samples_log, astats, eps)
     return {"samples": np.exp(samples_log),
             "samples_log": samples_log,
-            "accept_stats": np.stack([r[1] for r in runs]),
-            "step_size": np.asarray([r[2] for r in runs])}
+            "accept_stats": astats,
+            "step_size": eps}
+
+
+def _gather_chains(mesh, device, c0, num_chains, *parts):
+    """Every chain block's arrays (leading axis: its chains) on every rank,
+    by the exact all-gather over the "chains" group (float64 on the
+    rank's device, as the group's backend takes it)."""
+    from ..parallel.mesh import RowShare
+    share = RowShare(mesh.get_group("chains"), mesh["chains"].size(),
+                     mesh.get_local_rank("chains"))
+    k = parts[0].shape[0]
+    flat = np.concatenate([p.reshape(k, -1) for p in parts], axis=1)
+    whole = share.gather_rows(torch.as_tensor(flat).to(device), c0,
+                              num_chains).cpu().numpy()
+    out, pos = [], 0
+    for p in parts:
+        w = int(np.prod(p.shape[1:], dtype=np.int64))
+        out.append(whole[:, pos:pos + w].reshape((num_chains,) + p.shape[1:]))
+        pos += w
+    return out

@@ -39,40 +39,59 @@ import torch
 
 from ..kernels.covariance import make_kernel_fn
 from ..kernels.u_entries import u_entries
-from ..linalg.multifrontal import mf_device_arrays, mf_factor
+from ..linalg.multifrontal import mf_device_arrays, mf_factor_part
 from ..linalg.sparse import (device_schedule, pair_sum, spread_pads,
                              with_zeros)
 from ..linalg.trisolve import device_blocks, forward_solve
+from ..parallel.mesh import LOCAL
 from ..plan import ensure_v, get_mf_plan, get_plan, sel_pair_slots_packed
 
 __all__ = ["vecchia_likelihood", "loglik_fn", "zero_nugget_variant",
            "compute_v_factor"]
 
 
-def _device_arrays(plan, device, dtype):
-    """Index tensors of the plan on ``device`` (cached per device/dtype)."""
-    key = ("dev", str(device), dtype)
+def _device_arrays(plan, device, dtype, ranks=1, rank=0):
+    """Index tensors of the plan on ``device`` (cached per device, dtype
+    and share): the whole plan, or rank ``rank``'s share among ``ranks``
+    (``parallel.mesh.shard_rows``): the row arrays of its own rows (its
+    leaves' elements on a multifrontal plan, a contiguous range otherwise)
+    and its share of the tree; the rest replicated."""
+    key = ("dev", str(device), dtype, ranks, rank)
     if key in plan.cache:
         return plan.cache[key]
 
     def t(a, dt=None):
         return torch.as_tensor(np.ascontiguousarray(a)).to(device, dt)
 
-    dev = {
-        "locs": t(plan.locs, dtype),
-        "NN": t(plan.NN),
-        "valid": t(plan.valid),
-        "cond": t(plan.cond),
-        "nb_resp": t(plan.nb_resp),
-        "nb_obs_pos": t(plan.nb_obs_pos, torch.long),
-        "obs_points": t(plan.obs_points, torch.long),
-        "ord_z": t(plan.ord_z, torch.long),
-        "has_col": t(plan.has_latent_pts | plan.known_pts),
-        "zero_obs": t(plan.zero_obs),
-    }
+    dev = {}
+    rows = None
     if plan.use_mf:
         mfp, vert_obs = get_mf_plan(plan)
-        dev["mf"] = mf_device_arrays(mfp, device)
+        dev["mf"] = mf_device_arrays(mfp, device, ranks, rank)
+        rows = dev["mf"].elems
+    elif ranks > 1:
+        r0, r1 = plan.n_all * rank // ranks, plan.n_all * (rank + 1) // ranks
+        rows = np.arange(r0, r1)
+        dev["row0"] = r0
+    if rows is not None:
+        dev["rows"] = t(rows, torch.long)
+
+    def r(a):
+        return a if rows is None else a[rows]
+
+    dev.update({
+        "locs": t(plan.locs, dtype),
+        "NN": t(r(plan.NN)),
+        "valid": t(r(plan.valid)),
+        "cond": t(r(plan.cond)),
+        "nb_resp": t(r(plan.nb_resp)),
+        "nb_obs_pos": t(r(plan.nb_obs_pos), torch.long),
+        "obs_points": t(plan.obs_points, torch.long),
+        "ord_z": t(plan.ord_z, torch.long),
+        "has_col": t(r(plan.has_latent_pts | plan.known_pts)),
+        "zero_obs": t(plan.zero_obs),
+    })
+    if plan.use_mf:
         dev["vert_obs"] = t(vert_obs, torch.long)
         dev["vert_pt"] = t(np.flatnonzero(plan.has_latent_pts), torch.long)
         if plan.known_pts.any():
@@ -195,8 +214,8 @@ def _prepare_pack(dev, z):
                 nan_ord=isnan[dev["ord_z"]], zv=zv)
 
 
-def mf_inputs(dev, col, zord, nug_ord):
-    """(u_elem, dvec, rhs_vert) of the factor of W = U_y U_y^T + D: D adds
+def mf_vert_inputs(dev, zord, nug_ord):
+    """(dvec, rhs_vert) of the factor of W = U_y U_y^T + D: D adds
     1/nugget at observed vertices and the RHS adds -zord/nugget there (the
     observation column)."""
     vo = dev["vert_obs"]
@@ -205,17 +224,38 @@ def mf_inputs(dev, col, zord, nug_ord):
     nug_v = torch.where(obs_v, nug_ord[voc], 1.0)
     dvec = torch.where(obs_v, 1.0 / nug_v, 0.0)
     rhs_vert = torch.where(obs_v, -zord[voc] / nug_v, 0.0)
-    return torch.where(dev["cond"], col, 0.0), dvec, rhs_vert
+    return dvec, rhs_vert
 
 
-def _mf_denominator(dev, col, z1L, zord, nug_ord):
-    """(logdet W, z2^T W^{-1} z2)."""
-    u_elem, dvec, rhs_vert = mf_inputs(dev, col, zord, nug_ord)
-    return mf_factor(dev["mf"], u_elem, dvec, z1L, rhs_vert)
+def mf_inputs(dev, col, zord, nug_ord):
+    """(u_elem, dvec, rhs_vert) of the factor of W = U_y U_y^T + D."""
+    return (torch.where(dev["cond"], col, 0.0),
+            *mf_vert_inputs(dev, zord, nug_ord))
+
+
+def _local_cov(dev, cov):
+    """The covariance source as a rank's own rows read it: the selected
+    layout's packed pair slots are per row."""
+    kernel_fn, covmat, sel = cov
+    if sel is not None and "rows" in dev:
+        sel = (sel[0], sel[1][dev["rows"]])
+    return kernel_fn, covmat, sel
 
 
 def _loglik_core(plan, dev, pack, covparms, nuggets, dtype, device,
-                 cov=(None, None, None)):
+                 cov=(None, None, None), share=None):
+    """(log-likelihood, aux) on ``dev``: the whole plan, or with ``share``
+    (``parallel.mesh.RowShare``) a rank's share of it (``_device_arrays``
+    with ranks > 1), every rank returning the whole value.
+
+    The local part (the U entries of the rank's rows, their numerator
+    terms and the rank's levels of the tree) reads covparms and the
+    nuggets through ``share.replicate`` and leaves through
+    ``share.reduce`` / ``share.all_gather``; the replicated part (the
+    observation terms, the top levels of the tree, the V engine) reads
+    them directly.  Without a share every exchange is the identity, and
+    this is the single-process likelihood."""
+    share = LOCAL if share is None else share
     if not torch.is_tensor(covparms):
         covparms = torch.as_tensor(np.array(covparms, dtype=np.float64))
     covparms = covparms.to(dtype)
@@ -230,38 +270,62 @@ def _loglik_core(plan, dev, pack, covparms, nuggets, dtype, device,
     else:
         nug_vec = nug_in.expand(plan.n_obs)
         nug_ord = torch.where(pack["nan_ord"], big, nug_vec[dev["ord_z"]])
-    nug_point = torch.zeros(plan.n_all, dtype=dtype, device=device)
-    nug_point = nug_point.index_put((dev["obs_points"],), nug_ord)
+    zord = pack["zord"]
 
+    # ---- the local part: this rank's rows ----
+    cp_l, nug_l = share.replicate(covparms, nug_ord)
+    nug_point = torch.zeros(plan.n_all, dtype=dtype, device=device)
+    nug_point = nug_point.index_put((dev["obs_points"],), nug_l)
     col, bad = u_entries(dev["locs"], dev["NN"], dev["valid"], dev["cond"],
-                         nug_point, covparms, *cov)
+                         nug_point, cp_l, *_local_cov(dev, cov))
 
     # z1 over U columns: regression columns gather the values of their
     # known-conditioned neighbors (response-conditioned, or exact latents)
-    zord = pack["zord"]
-    zero_obs = dev["zero_obs"]
-    nug_safe = torch.where(zero_obs, 1.0, nug_ord)
     z1L = torch.sum(torch.where(dev["nb_resp"], col * pack["znb"], 0.0), dim=1)
     col_mask = dev["has_col"]
     z1L = torch.where(col_mask, z1L, 0.0)
-    z1Z = torch.where(zero_obs, 0.0, zord / torch.sqrt(nug_safe))
-
-    quad_num = torch.sum(z1L * z1L) + torch.sum(z1Z * z1Z)
-    logdet_num = (-2.0 * torch.sum(torch.where(
-        col_mask, torch.log(torch.where(col_mask, col[:, 0], 1.0)), 0.0))
-        + torch.sum(torch.where(zero_obs, 0.0, torch.log(nug_safe))))
+    local = [torch.sum(z1L * z1L), -2.0 * torch.sum(torch.where(
+        col_mask, torch.log(torch.where(col_mask, col[:, 0], 1.0)), 0.0))]
 
     # dropped (non-SPD) rows contribute nothing to W = U_y U_y^T
     col_w = torch.where(bad[:, None], 0.0, col)
+    mf = plan.use_mf and plan.n_lat > 0
+    if mf:
+        dvec, rhs_vert = mf_vert_inputs(dev, zord, nug_l)
+        ld_w, q_w, schur = mf_factor_part(
+            dev["mf"], torch.where(dev["cond"], col_w, 0.0), dvec, z1L,
+            rhs_vert)
+        local += [ld_w, q_w]
+    quad_rows, logdet_rows, *denom = share.reduce(*local)
+
+    # ---- the replicated part ----
+    zero_obs = dev["zero_obs"]
+    nug_safe = torch.where(zero_obs, 1.0, nug_ord)
+    z1Z = torch.where(zero_obs, 0.0, zord / torch.sqrt(nug_safe))
+    quad_num = quad_rows + torch.sum(z1Z * z1Z)
+    logdet_num = logdet_rows + torch.sum(torch.where(
+        zero_obs, 0.0, torch.log(nug_safe)))
 
     if plan.n_lat == 0:
         # every observation exact: no latent left, no denominator
         logdet_denom = quad_denom = torch.zeros((), dtype=dtype, device=device)
-    elif plan.use_mf:
-        logdet_w, quad_denom = _mf_denominator(dev, col_w, z1L, zord, nug_ord)
+    elif mf:
+        logdet_w, quad_denom = denom
+        top = dev["mf"].top
+        if top is not None:
+            # the top levels, from every rank's shallowest Schur blocks
+            dvec, rhs_vert = mf_vert_inputs(dev, zord, nug_ord)
+            ld_t, q_t, _ = mf_factor_part(top, share.all_gather(schur), dvec,
+                                          None, rhs_vert)
+            logdet_w = logdet_w + ld_t
+            quad_denom = quad_denom + q_t
         logdet_denom = -logdet_w
     else:
         # denominator through V: z3 = V^{-1} rev(z2), logdet from V's diagonal
+        if "row0" in dev:
+            cz = share.all_gather(torch.cat([col_w, z1L[:, None]], dim=1),
+                                  dev["row0"], plan.n_all)
+            col_w, z1L = cz[:, :-1], cz[:, -1]
         z2 = z2_of(dev, col_w, z1L, z1Z, nug_safe)
         v = compute_v_factor(plan, dev, col_w, nug_ord)
         z3 = forward_solve(v, z2.flip(0), dev["fwd"])
@@ -270,7 +334,7 @@ def _loglik_core(plan, dev, pack, covparms, nuggets, dtype, device,
 
     const = plan.n_obs * math.log(2.0 * math.pi)
     neg2 = logdet_num - logdet_denom + quad_num - quad_denom + const
-    return -0.5 * neg2, {"n_dropped_rows": torch.sum(bad)}
+    return -0.5 * neg2, {"n_dropped_rows": share.sum_ranks(torch.sum(bad))}
 
 
 def zero_nugget_variant(spec, nuggets):
@@ -435,8 +499,17 @@ def loglik_fn(spec, covmodel="matern", *, device="cuda",
     key = ("loglik", _covmodel_key(covmodel), str(device), dtype, with_aux)
     if key in plan.cache:
         return plan.cache[key]
-    cov = _dispatch_covmodel(spec, covmodel, device, dtype)
-    dev = _device_arrays(plan, device, dtype)
+    fn = _loglik_closure(plan, _device_arrays(plan, device, dtype),
+                         _dispatch_covmodel(spec, covmodel, device, dtype),
+                         device, dtype, with_aux)
+    plan.cache[key] = fn
+    return fn
+
+
+def _loglik_closure(plan, dev, cov, device, dtype, with_aux=False,
+                    share=None):
+    """fn(z, covparms, nuggets) over ``dev`` (a whole plan's arrays or a
+    rank's share), with the data preparation cached per z (``zkey``)."""
     zcache = {}
 
     def fn(z, covparms, nuggets):
@@ -447,10 +520,9 @@ def loglik_fn(spec, covmodel="matern", *, device="cuda",
             # ref pins z so that its id stays unique while it is the key
             zcache.update(key=zk, ref=z, pack=_prepare_pack(dev, zt))
         ll, aux = _loglik_core(plan, dev, zcache["pack"], covparms, nuggets,
-                               dtype, device, cov)
+                               dtype, device, cov, share)
         return (ll, aux) if with_aux else ll
 
-    plan.cache[key] = fn
     return fn
 
 

@@ -35,8 +35,8 @@ from ..linalg.selinv import (build_selinv_levels, device_selinv_levels,
 from ..linalg.trisolve import backward_solve, forward_solve
 from ..plan import ensure_v, get_plan
 from .likelihood import (_covmodel_key, _device_arrays, _dispatch_covmodel,
-                         compute_v_factor, mf_inputs, resolve_device, z2_of,
-                         zero_nugget_variant)
+                         _local_cov, compute_v_factor, mf_inputs,
+                         resolve_device, z2_of, zero_nugget_variant)
 
 __all__ = ["vecchia_prediction", "vecchia_lincomb", "V2covmat"]
 
@@ -48,12 +48,15 @@ EXACT_BYTES = 1 << 32
 
 
 def _posterior_core(plan, dev, z, covparms, nuggets,
-                    cov=(None, None, None)):
+                    cov=(None, None, None), share=None):
     """(mu, factor) for tensors ``z`` and ``nuggets`` (n_obs,) in original
     observation order on the plan's device; no NA handling (the callers
     fill).  On a ``use_mf`` plan mu is over the ordered points and the
     factor the kept ``MFFactor``; on a V plan mu is over the latent
-    variables in the ordered sequence and the factor V's values."""
+    variables in the ordered sequence and the factor V's values.  With
+    ``share`` (``parallel.mesh.RowShare``, a multifrontal plan) ``dev`` is
+    a rank's share: the rank computes its rows' U entries and its levels,
+    and mu comes back whole on every rank."""
     dtype = dev["locs"].dtype
     if not torch.is_tensor(covparms):
         covparms = torch.as_tensor(np.array(covparms, dtype=np.float64))
@@ -62,7 +65,7 @@ def _posterior_core(plan, dev, z, covparms, nuggets,
     nug_point = torch.zeros(plan.n_all, dtype=dtype, device=z.device)
     nug_point = nug_point.index_put((dev["obs_points"],), nug_ord)
     col, bad = u_entries(dev["locs"], dev["NN"], dev["valid"], dev["cond"],
-                         nug_point, covparms, *cov)
+                         nug_point, covparms, *_local_cov(dev, cov))
     # a dropped (non-SPD) row adds nothing to W, as in the likelihood
     col_w = torch.where(bad[:, None], 0.0, col)
     zord = z[dev["ord_z"]]
@@ -79,7 +82,7 @@ def _posterior_core(plan, dev, z, covparms, nuggets,
         mu_rev = backward_solve(v, temp, dev["bwd"], dev["bwd_x_perm"])
         return -mu_rev.flip(0), v
     u_elem, dvec, rhs_vert = mf_inputs(dev, col_w, zord, nug_ord)
-    fac = mf_factor_keep(dev["mf"], u_elem, dvec, z1L, rhs_vert)
+    fac = mf_factor_keep(dev["mf"], u_elem, dvec, z1L, rhs_vert, share)
     # mean = -W^{-1} z2 over the vertices (the latent ranks)
     mu_lat = -mf_backward(fac)
     if "known_pt" not in dev:

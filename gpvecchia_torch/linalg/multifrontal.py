@@ -30,6 +30,18 @@ gradients and returns the factored fronts as an ``MFFactor``; on it
 (the JAX package's functions of those names, XLA there: here plain torch
 triangular solves, batched products and gathers).  They read only the lower
 triangles of the fronts: H4 never writes the upper ones.
+
+A rank of a sharded run (``parallel/mesh.py``) holds a share of the tree
+(``mf_device_arrays(mf, device, ranks, rank)``): from the shallowest depth
+whose node count the rank count divides (log2 R) down to the leaves, the
+contiguous node range [r N/R, (r+1) N/R) of every level, which is a whole
+set of subtrees, since the children of node i are 2i and 2i+1; above that,
+the replicated top levels (``levels.top``), which every rank computes.
+``mf_factor_part`` factors either part: the share's own levels return
+their shallowest level's Schur blocks, which the ranks exchange, and the
+top levels extend-add from the exchanged blocks.  ``mf_factor_keep``,
+``mf_backward`` and ``mf_selinv_diag`` take the same walk (top down in
+the last two) and exchange their vertex results at the end.
 """
 
 from __future__ import annotations
@@ -42,45 +54,91 @@ from torch.autograd.function import once_differentiable
 from .frontal import (extend_add, extend_add_bwd, front_factor,
                       front_factor_vjp, leaf_assemble, leaf_assemble_bwd)
 
-__all__ = ["MFFactor", "mf_device_arrays", "mf_factor", "mf_factor_keep",
-           "mf_forward", "mf_backward", "mf_solve", "mf_selinv_diag"]
+__all__ = ["MFFactor", "mf_device_arrays", "mf_factor", "mf_factor_part",
+           "mf_factor_keep", "mf_forward", "mf_backward", "mf_solve",
+           "mf_selinv_diag"]
 
 
 class MFLevels(list):
     """Per-level index tensors of an ``MFPlan`` (root first, leaf last) and
     the plan's flat x layout: ``x_size`` slots, ``x_slot`` (n_vert,) the
-    slot of each vertex, each level's first slot as its ``x_off``."""
+    slot of each vertex, each level's first slot as its ``x_off``.
 
-    def __init__(self, levels, n_vert, x_size, x_slot):
+    On a rank's share the list holds its own levels only (the shallowest
+    sharded depth first) and ``top`` the replicated levels above them
+    (None when the rank holds the whole tree); ``elems`` are the element
+    ids (rows) of its leaves, sorted, to which the leaf's ``elem_pt``
+    points (None: every element, unmapped), and ``x_top`` is the first
+    slot past the top levels' pivots."""
+
+    def __init__(self, levels, n_vert, x_size, x_slot, top=None, elems=None,
+                 x_top=0):
         super().__init__(levels)
         self.n_vert, self.x_size, self.x_slot = n_vert, x_size, x_slot
+        self.top, self.elems, self.x_top = top, elems, x_top
 
 
-def mf_device_arrays(mf, device):
-    """Per-level index tensors of an ``MFPlan`` (an ``MFLevels``)."""
-    levels = []
+def mf_device_arrays(mf, device, ranks=1, rank=0):
+    """Per-level index tensors of an ``MFPlan`` (an ``MFLevels``): the
+    whole tree, or rank ``rank``'s share of it among ``ranks``.
+
+    ``ranks`` must be a power of two no larger than the number of leaves:
+    every depth d >= log2(ranks) then splits into equal node ranges, and
+    the log2(ranks) levels above are replicated.  Any other rank count
+    raises ``ValueError`` (the JAX package replicates a level whose node
+    count does not divide; here a rank count that splits no level would
+    leave every rank the whole factor)."""
+    if ranks < 1 or ranks & (ranks - 1):
+        raise ValueError(f"the multifrontal tree splits over a power of two "
+                         f"of ranks, not {ranks}")
     D = mf.depth
+    if (1 << D) < ranks:
+        raise ValueError(f"the multifrontal tree has {1 << D} leaves, fewer "
+                         f"than the {ranks} ranks to split it over")
+    s = ranks.bit_length() - 1            # the shallowest sharded depth
+
+    def own_range(d):
+        N = 1 << d
+        return (rank * N // ranks, (rank + 1) * N // ranks) if d >= s \
+            else (0, N)
+
+    def t(a):
+        return torch.as_tensor(np.ascontiguousarray(a)).to(device)
+
+    levels, elems = [], None
     for d, lv in enumerate(mf.levels):
         P, B = lv.npiv, lv.nbord
         F1 = P + B + 1
-        N = lv.piv_ids.shape[0]
-        entry = dict(P=P, B=B, F1=F1, x_off=int(mf.x_offsets[d]),
-                     piv_ids=torch.as_tensor(lv.piv_ids).long().to(device))
+        n0, n1 = own_range(d)
+        N = n1 - n0
+        entry = dict(P=P, B=B, F1=F1, x_off=int(mf.x_offsets[d]) + n0 * P,
+                     piv_ids=t(lv.piv_ids[n0:n1]).long())
         if d > 0:
-            entry["bip"] = torch.as_tensor(lv.bord_in_parent).long().to(device)
-            entry["bxs"] = torch.as_tensor(lv.bord_x_slot).long().to(device)
+            entry["bip"] = t(lv.bord_in_parent[n0:n1]).long()
+            entry["bxs"] = t(lv.bord_x_slot[n0:n1]).long()
+            # the parent of node i is node i // 2, indexed within the
+            # parent level's own range
+            entry["par"] = t(np.arange(n0, n1) // 2 - own_range(d - 1)[0])
         if d < D:
             Bc1 = mf.levels[d + 1].nbord + 1
             ext_aug = np.full((N, 2, F1), -1, np.int32)
-            ext_aug[:, :, :F1 - 1] = lv.ext
+            ext_aug[:, :, :F1 - 1] = lv.ext[n0:n1]
             ext_aug[:, :, F1 - 1] = Bc1 - 1
-            entry["ext_aug"] = torch.as_tensor(ext_aug).to(device)
+            entry["ext_aug"] = t(ext_aug)
         else:
-            entry["elem_pt"] = torch.as_tensor(lv.elem_pt).long().to(device)
-            entry["elem_pos"] = torch.as_tensor(lv.elem_pos).to(device)
+            ept = lv.elem_pt[n0:n1]
+            if ranks > 1:
+                elems = np.unique(ept[ept >= 0])
+                ept = np.where(ept >= 0, np.searchsorted(elems, ept), -1)
+            entry["elem_pt"] = t(ept).long()
+            entry["elem_pos"] = t(lv.elem_pos[n0:n1])
         levels.append(entry)
-    return MFLevels(levels, mf.n_vert, mf.x_size,
-                    torch.as_tensor(mf.x_slot).long().to(device))
+    x_slot = t(mf.x_slot).long()
+    if s == 0:
+        return MFLevels(levels, mf.n_vert, mf.x_size, x_slot)
+    top = MFLevels(levels[:s], mf.n_vert, mf.x_size, x_slot)
+    return MFLevels(levels[s:], mf.n_vert, mf.x_size, x_slot, top=top,
+                    elems=elems, x_top=int(mf.x_offsets[s]))
 
 
 def _piv_vec(piv_ids, vec, fill, F1):
@@ -96,38 +154,42 @@ def _piv_vec(piv_ids, vec, fill, F1):
 _BWD_CHUNK_BYTES = 1 << 29
 
 
-def _forward(levels, u_elem, dvec, rhs_elem, rhs_vert, keep):
-    """(logdet, quad, fronts): fronts[d] is level d's factored front when
-    ``keep``, else None (released once its parent is assembled)."""
-    dt = u_elem.dtype
-    logdet = u_elem.new_zeros(())
-    quad = u_elem.new_zeros(())
+def _forward(levels, first, dvec, rhs_elem, rhs_vert, keep):
+    """(logdet, quad, fronts, schur) over ``levels``: fronts[d] is level
+    d's factored front when ``keep``, else None (released once its parent
+    is assembled); ``schur`` the first level's Schur blocks, a view.
+
+    ``first`` is the element values u_elem (E, K) when the deepest level
+    is the leaf, else the Schur blocks (2N, B+1, B+1) of the level below
+    the deepest (the exchanged blocks of a share's top levels)."""
+    dt = first.dtype
+    logdet = first.new_zeros(())
+    quad = first.new_zeros(())
     fronts = [None] * len(levels)
-    child = None
+    blk = None if "elem_pt" in levels[-1] else first
     for d in range(len(levels) - 1, -1, -1):
         lv = levels[d]
         P, F1 = lv["P"], lv["F1"]
         dv = _piv_vec(lv["piv_ids"], dvec, 1.0, F1).to(dt)
         rv = _piv_vec(lv["piv_ids"], rhs_vert, 0.0, F1).to(dt)
-        if child is None:
-            u, re = _leaf_values(lv["elem_pt"], u_elem, rhs_elem)
+        if blk is None:
+            u, re = _leaf_values(lv["elem_pt"], first, rhs_elem)
             front = leaf_assemble(u, lv["elem_pos"], re, dv, rv)
             del u, re
         else:
             # the children's Schur blocks, read in place from their fronts
-            upd = child[:, child_P:, child_P:].unflatten(0, (-1, 2))
-            front = extend_add(upd, lv["ext_aug"], dv, rv)
-            del upd
-        child = None
+            front = extend_add(blk.unflatten(0, (-1, 2)), lv["ext_aug"], dv,
+                               rv)
+        blk = None
         front_factor(front, P)
         diag = torch.diagonal(front, dim1=1, dim2=2)[:, :P]
         logdet = logdet + 2.0 * torch.sum(torch.log(diag))
         y = front[:, F1 - 1, :P]
         quad = quad + torch.sum(y * y)
-        child, child_P = front, P
+        blk = front[:, P:, P:]
         if keep:
             fronts[d] = front
-    return logdet, quad, fronts
+    return logdet, quad, fronts, blk
 
 
 def _leaf_values(ept, u_elem, rhs_elem):
@@ -149,26 +211,37 @@ def _scatter(acc, ids, vals):
                    vals.reshape((-1,) + acc.shape[1:]))
 
 
-def _backward(levels, fronts, u_elem, rhs_elem, n_vert, g_logdet, g_quad):
-    du_elem = torch.zeros_like(u_elem)
-    drhs_elem = torch.zeros_like(rhs_elem)
-    ddvec = u_elem.new_zeros(n_vert)
-    drhs_vert = u_elem.new_zeros(n_vert)
-    g_logdet = g_logdet.to(u_elem.dtype)
-    g_quad = g_quad.to(u_elem.dtype)
+def _backward(levels, fronts, u_elem, rhs_elem, n_vert, g_logdet, g_quad,
+              g_schur=None, d_first=None):
+    """Cotangents of ``_forward``'s inputs: (du_elem, ddvec, drhs_elem,
+    drhs_vert), the first and third None when the deepest level is not the
+    leaf; then the cotangent of the blocks below it is written into
+    ``d_first`` (zeros, the blocks' shape).  ``g_schur`` is the cotangent
+    of the first level's Schur blocks (None: nothing reads them)."""
+    leaf = "elem_pt" in levels[-1]
+    du_elem = torch.zeros_like(u_elem) if leaf else None
+    drhs_elem = torch.zeros_like(rhs_elem) if leaf else None
+    dt = fronts[0].dtype
+    ddvec = fronts[0].new_zeros(n_vert)
+    drhs_vert = fronts[0].new_zeros(n_vert)
+    g_logdet = g_logdet.to(dt)
+    g_quad = g_quad.to(dt)
     D = len(levels) - 1
     for d, lv in enumerate(levels):
         front = fronts[d]
         P, F1 = lv["P"], lv["F1"]
         N, B1 = front.shape[0], F1 - P
-        # the root's Schur block feeds nothing; below it, the parent's H6
-        # wrote this level's Schur-block cotangent into [P:, P:]
-        dupd = front[:, P:, P:] if d > 0 else None
+        # the first level's Schur block feeds the exchange (or nothing, at
+        # the root); below it, the parent's H6 wrote this level's
+        # Schur-block cotangent into [P:, P:]
+        dupd = front[:, P:, P:] if d > 0 else g_schur
         if d < D:
             Pc = levels[d + 1]["P"]
             child_blk = fronts[d + 1][:, Pc:, Pc:]
             child_blk.zero_()
             child_blk = child_blk.unflatten(0, (-1, 2))
+        elif not leaf:
+            child_blk = d_first.unflatten(0, (-1, 2))
         step = max(1, _BWD_CHUNK_BYTES // (F1 * F1 * front.element_size()))
         for n0 in range(0, N, step):
             sl = slice(n0, n0 + step)
@@ -180,7 +253,7 @@ def _backward(levels, fronts, u_elem, rhs_elem, n_vert, g_logdet, g_quad):
             dfront = front_factor_vjp(fr, P, dL_pp, dL_bp,
                                       None if dupd is None else dupd[sl])
             del dL_pp, dL_bp
-            if d < D:
+            if d < D or not leaf:
                 ddv, drv = extend_add_bwd(dfront, lv["ext_aug"][sl],
                                           child_blk[sl])
             else:
@@ -200,31 +273,56 @@ def _backward(levels, fronts, u_elem, rhs_elem, n_vert, g_logdet, g_quad):
 class _MFFactor(torch.autograd.Function):
 
     @staticmethod
-    def forward(ctx, levels, u_elem, dvec, rhs_elem, rhs_vert):
+    def forward(ctx, levels, first, dvec, rhs_elem, rhs_vert):
         keep = any(ctx.needs_input_grad[1:])
-        logdet, quad, fronts = _forward(levels, u_elem, dvec, rhs_elem,
-                                        rhs_vert, keep)
+        logdet, quad, fronts, blk = _forward(levels, first, dvec, rhs_elem,
+                                             rhs_vert, keep)
+        if levels.top is None:
+            schur = first.new_zeros(0)
+            ctx.mark_non_differentiable(schur)
+        else:
+            schur = blk.clone(memory_format=torch.contiguous_format)
+        del blk
         if keep:
             ctx.levels = levels
             ctx.dtypes = (dvec.dtype, rhs_vert.dtype)
             ctx.n_vert = dvec.shape[0]
-            ctx.save_for_backward(u_elem, rhs_elem, *fronts)
-        return logdet, quad
+            ctx.first_shape = first.shape
+            leaf_in = (first, rhs_elem) if "elem_pt" in levels[-1] else ()
+            ctx.n_leaf_in = len(leaf_in)
+            ctx.save_for_backward(*leaf_in, *fronts)
+        return logdet, quad, schur
 
     @staticmethod
     @once_differentiable
-    def backward(ctx, g_logdet, g_quad):
-        u_elem, rhs_elem, *fronts = ctx.saved_tensors
+    def backward(ctx, g_logdet, g_quad, g_schur):
+        saved = ctx.saved_tensors
+        u_elem, rhs_elem = saved[:ctx.n_leaf_in] or (None, None)
+        fronts = [f.data for f in saved[ctx.n_leaf_in:]]
+        d_first = None
+        if u_elem is None:
+            d_first = fronts[0].new_zeros(ctx.first_shape)
         # The backward writes each child's Schur-block cotangent into that
         # child's saved front ([P:, P:], which nothing else of the backward
         # reads), so it works on aliases outside autograd's version
         # tracking; a second backward (retain_graph) rewrites the same
         # blocks the same way.
-        du, ddvec, dre, drv = _backward(ctx.levels, [f.data for f in fronts],
-                                        u_elem, rhs_elem, ctx.n_vert,
-                                        g_logdet, g_quad)
-        return (None, du, ddvec.to(ctx.dtypes[0]), dre,
-                drv.to(ctx.dtypes[1]))
+        du, ddvec, dre, drv = _backward(
+            ctx.levels, fronts, u_elem, rhs_elem, ctx.n_vert, g_logdet,
+            g_quad, g_schur if g_schur.numel() else None, d_first)
+        return (None, du if u_elem is not None else d_first,
+                ddvec.to(ctx.dtypes[0]), dre, drv.to(ctx.dtypes[1]))
+
+
+def mf_factor_part(levels, first, dvec, rhs_elem, rhs_vert):
+    """(logdet, quad, schur) of the factor over ``levels``, differentiable
+    in its inputs: on the whole tree or a rank's own levels ``first`` is
+    u_elem and the element RHS ``rhs_elem``, on a share's top levels
+    (``levels.top`` of the own part) ``first`` is the exchanged Schur
+    blocks of the depth below and ``rhs_elem`` None.  ``schur`` is the own
+    part's shallowest Schur blocks (N_own, B+1, B+1), contiguous, for the
+    exchange; empty where nothing lies above."""
+    return _MFFactor.apply(levels, first, dvec, rhs_elem, rhs_vert)
 
 
 def mf_factor(levels, u_elem, dvec, rhs_elem, rhs_vert):
@@ -235,7 +333,7 @@ def mf_factor(levels, u_elem, dvec, rhs_elem, rhs_vert):
     (0 at absent slots); dvec, rhs_vert: (n_vert,); rhs_elem: (E,).
     Padded pivots get 1.0 on the diagonal and factor as exact 1s.
     """
-    return _MFFactor.apply(levels, u_elem, dvec, rhs_elem, rhs_vert)
+    return mf_factor_part(levels, u_elem, dvec, rhs_elem, rhs_vert)[:2]
 
 
 # ------------------------------------------------------- the posterior ----
@@ -246,11 +344,16 @@ class MFFactor:
     factored front (N, F1, F1), whose lower triangle holds L_pp in
     [:P, :P], L_bp in [P:F1-1, :P] and y = L_pp^{-1} b in row F1-1.  The
     upper triangles are unspecified (H4 never writes them), so the
-    accessors and every solve read lower triangles only."""
+    accessors and every solve read lower triangles only.
 
-    def __init__(self, levels, fronts, logdet, quad):
+    A sharded factor lists the replicated top levels first (``n_top`` of
+    them) and then the rank's own levels, with ``share`` the exchange of
+    the solves' results."""
+
+    def __init__(self, levels, fronts, logdet, quad, share=None, n_top=0):
         self.levels, self.fronts = levels, fronts
         self.logdet, self.quad = logdet, quad
+        self.share, self.n_top = share, n_top
 
     @property
     def dtype(self):
@@ -281,19 +384,37 @@ class MFFactor:
         return self.fronts[d][:, lv["F1"] - 1, :lv["P"]]
 
 
-def mf_factor_keep(levels, u_elem, dvec, rhs_elem, rhs_vert):
+def mf_factor_keep(levels, u_elem, dvec, rhs_elem, rhs_vert, share=None):
     """``mf_factor``'s forward, not differentiable, returning the factor
-    (an ``MFFactor``) for the solves and the selected inverse below."""
+    (an ``MFFactor``) for the solves and the selected inverse below.  On a
+    rank's share of the tree, ``share`` (``parallel.mesh.RowShare``)
+    exchanges the own levels' shallowest Schur blocks, and every rank
+    factors the top levels; ``logdet`` and ``quad`` are the whole tree's."""
     with torch.no_grad():
-        logdet, quad, fronts = _forward(levels, u_elem, dvec, rhs_elem,
-                                        rhs_vert, keep=True)
-    return MFFactor(levels, fronts, logdet, quad)
+        logdet, quad, fronts, blk = _forward(levels, u_elem, dvec, rhs_elem,
+                                             rhs_vert, keep=True)
+        top = levels.top
+        if top is None:
+            return MFFactor(levels, fronts, logdet, quad)
+        logdet, quad = share.reduce(logdet, quad)
+        upd = share.all_gather(
+            blk.clone(memory_format=torch.contiguous_format))
+        del blk
+        ld, q, top_fronts, _ = _forward(top, upd, dvec, None, rhs_vert,
+                                        keep=True)
+        del upd
+    both = MFLevels(list(top) + list(levels), levels.n_vert, levels.x_size,
+                    levels.x_slot, x_top=levels.x_top)
+    return MFFactor(both, top_fronts + fronts, logdet + ld, quad + q,
+                    share=share, n_top=len(top))
 
 
 def mf_forward(fac, rhs_vert):
     """Forward solve L y = b for a fresh RHS b = rhs_vert over the vertices,
     (n_vert,) or (n_vert, k), with a kept factor.  Returns (ys, quad): the
     per-level pivot solutions (N, P) (or (N, P, k)) and ||y||^2."""
+    if fac.share is not None:
+        raise NotImplementedError("mf_forward on a sharded factor")
     levels = fac.levels
     rhs = rhs_vert.to(fac.device, fac.dtype)
     vec = rhs.dim() == 1
@@ -348,6 +469,13 @@ def mf_backward(fac, ys=None):
             rhs = rhs - fac.L_bp(d).mT @ xb
         xp = torch.linalg.solve_triangular(fac._lpp(d).mT, rhs, upper=True)
         x[lv["x_off"]:lv["x_off"] + xp.shape[0] * P] = xp.reshape(-1, k)
+    if fac.share is not None:
+        # every rank's own slots (past the top levels' x_top) to every rank
+        own = x.clone()
+        own[:levels.x_top] = 0.0
+        own = fac.share.all_sum(own)
+        own[:levels.x_top] = x[:levels.x_top]
+        x = own
     x = x[levels.x_slot]
     return x[:, 0] if vec else x
 
@@ -403,12 +531,13 @@ def mf_selinv_diag(fac, leaf_chunks=None):
     D = len(levels) - 1
     n_vert = levels.n_vert
     diag = fac.fronts[0].new_zeros(n_vert + 1)       # the last slot: pads
+    top = []
     S_prev = None
     for d, lv in enumerate(levels):
         P, F = lv["P"], lv["F1"] - 1
         front = fac.fronts[d]
         N = front.shape[0]
-        par = torch.arange(N, device=front.device) // 2
+        par = lv.get("par")
         if d == D and F > P and d > 0:
             nchunk = leaf_chunks
             if nchunk is None:
@@ -439,6 +568,14 @@ def mf_selinv_diag(fac, leaf_chunks=None):
             dg = torch.diagonal(S_pp, 0, 1, 2)
             S_prev = S
         piv = lv["piv_ids"]
-        diag.index_put_((torch.where(piv >= 0, piv, n_vert).reshape(-1),),
-                        dg.reshape(-1))
+        at = (torch.where(piv >= 0, piv, n_vert).reshape(-1), dg.reshape(-1))
+        if d < fac.n_top:
+            top.append(at)
+        else:
+            diag.index_put_((at[0],), at[1])
+    if fac.share is not None:
+        # every rank's own vertices to every rank, then the top's
+        diag = fac.share.all_sum(diag)
+        for idx, v in top:
+            diag.index_put_((idx,), v)
     return diag[:n_vert]

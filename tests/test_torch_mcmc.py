@@ -24,6 +24,9 @@ from gpvecchia_tpu.inference.likelihood import loglik_core
 
 import gpvecchia_torch as GT
 from gpvecchia_torch.fit import mcmc as TM
+from gpvecchia_torch.parallel import mesh as PM
+
+import torch_mesh_ranks as MR
 
 torch.set_default_dtype(torch.float64)
 
@@ -301,11 +304,35 @@ def test_sample_posterior_keys_follow_jax():
                                    atol=CHAIN_TOL)
 
 
-def test_sample_posterior_mesh_raises():
-    locs = np.random.default_rng(0).uniform(size=(30, 2))
-    spec = GT.vecchia_specify(locs, m=4)
-    with pytest.raises(NotImplementedError, match="queue 1, item 7"):
-        TM.sample_posterior(spec, np.zeros(30), mesh=object(), device="cpu")
+@pytest.fixture(scope="module")
+def mesh_chains():
+    """sample_posterior over a (chains=2, rows=1) mesh of 2 gloo ranks
+    (``torch_mesh_ranks.chains_rank``; one spawn), each rank's result."""
+    return PM.run_local(MR.chains_rank, 2, backend="gloo", device="cpu",
+                        timeout=300.0)
+
+
+def test_sample_posterior_mesh_matches_unsharded(mesh_chains):
+    """The chains spread over the chains axis: every rank returns both
+    chains, and their draws, acceptance statistics and step sizes equal
+    those of mesh=None bit for bit (the same code on the same keys)."""
+    spec, z = MR.chain_problem()
+    threads = torch.get_num_threads()
+    MR.one_thread()                   # as the ranks run
+    try:
+        want = TM.sample_posterior(spec, z, num_chains=2, **MR.CHAIN_KW)
+    finally:
+        torch.set_num_threads(threads)
+    for got in mesh_chains:
+        assert got["samples"].shape == (2, MR.CHAIN_KW["num_samples"], 4)
+        for k in ("samples", "samples_log", "accept_stats", "step_size"):
+            np.testing.assert_array_equal(got[k], want[k])
+
+
+def test_sample_posterior_mesh_needs_divisible_chains(mesh_chains):
+    for got in mesh_chains:
+        assert "3 chains do not divide over 2 chain ranks" in \
+            got["indivisible"]
 
 
 def test_torch_keys_are_deterministic():
