@@ -5,6 +5,7 @@
     python3 chip_smoke.py --n 1000000 --m 40   # the north-star size, f32 only
     python3 chip_smoke.py --profile            # + torch.profiler breakdowns
     python3 chip_smoke.py --only-h4            # H4 alone; no final "ok" line
+    python3 chip_smoke.py --only-h9            # H9 alone; no final "ok" line
     python3 chip_smoke.py --only-h15           # H1, H5 alone; no "ok" line
     python3 chip_smoke.py --only-assembly      # H2, H3 alone; no "ok" line
 
@@ -27,9 +28,9 @@ Builds the host library and the CUDA kernels from this checkout, then
    value, ``gen_run``; then at the edge shapes, at GEN_NUS on batches with
    pairs on both sides of s = 3, their padding and a matrix not SPD,
    ``gen_edge_phase``), solve_e0_bwd (K2 one to one,
-   H8's backward: at H8's shape and on random SPD matrices), H6
-   extend_add_bwd (writing, as on the main path, through a strided view
-   into child fronts' Schur blocks) and H7 leaf_assemble_bwd.  Then H2 and
+   H8's backward: at H8's shape and on random SPD matrices) and H7
+   leaf_assemble_bwd (reading the lower triangle of a cotangent whose
+   upper triangle is NaN).  Then H2 and
    H3 at their edge shapes (``H2_EDGE_SHAPES``, ``H3_EDGE_SHAPES``: H3 bit
    for bit its plain version, H2 by the rule below, each launched twice
    with the same bits, upper triangles and guard values past the batch
@@ -37,13 +38,22 @@ Builds the host library and the CUDA kernels from this checkout, then
    this run's plan, bit for bit its plain version in both dtypes, with a
    row a level (ms, bound, share of bound) and the sums over the levels
    (``eadd_level_phase``; the widest level's row is H3's in the
-   ``kernels`` line).  Then H4
+   ``kernels`` line), and at each internal level H6 extend_add_bwd, bit
+   for bit its plain version on the lower triangles it writes, through a
+   strided view into child fronts' Schur blocks as on the main path, from
+   a cotangent whose upper triangle is NaN.  Then H4
    front_factor, measured here only: the edge shapes of its blocked schedule (``H4_EDGE_SHAPES``, a batch whose
    middle front is not SPD, NaN in the strict upper triangle of the
    inputs), and H4 at every level of this run's multifrontal plan, each
    against its plain version (cuSOLVER potrf, cuBLAS trsm and gemm: the
    library's route), with the sum over the levels of an evaluation; the
-   leaf's row is H4's in the ``kernels`` line;
+   leaf's row is H4's in the ``kernels`` line.  Then H9 front_factor_bwd,
+   H4's pullback in place: its edge shapes (``H9_EDGE_SHAPES``, NaN in the
+   strict upper triangle of its inputs, which must not change a bit of
+   the output) and H9 at every level of this run's plan against its plain
+   version (``front_factor_vjp``, the JAX package's formula in torch and
+   cuBLAS, and the store), with the sum over the levels of a value+grad;
+   the leaf's row is H9's in the ``kernels`` line;
 2. slice phase: drives ``vecchia_likelihood`` / ``loglik_fn`` on an SGV spec
    of bench.py's data (rng(1988) uniform locations, z ~ N(0, 1), covparms
    (1.0, 0.2, 0.5), nugget 0.1).  At the default size the f64 value on the
@@ -57,8 +67,9 @@ Builds the host library and the CUDA kernels from this checkout, then
    of 5 value+grad evaluations) and once with a vector of nuggets.  At the
    default size the f64 gradient on the card is held against the CPU plain
    path in f64 and the f32 gradient against the f64 one.  All launch
-   counters are reset just before this phase, and each of H1-H7 must have
-   launched in it;
+   counters are reset just before this phase, and each of H1-H7 and H9
+   must have launched in it; ``front_factor_vjp`` (H9's plain version)
+   must not have run;
 4. general-covariance phase: the same at covparms (1.0, 0.05, 0.8) (a
    smoothness without closed form: log K_nu is evaluated inside the general
    H1 and H5), value and value+grad (median of 5).  At the default size f64
@@ -179,7 +190,8 @@ exits without the final device line.  ``--only-h4`` is a tool for work on
 H4: it builds the kernels, runs the edge
 shapes and the level phase on the fixed table of the 14 level shapes of
 n=1e6, m=40 (no spec, no plan, no other phase) and exits without the final
-device line, so that such a run is never taken for a pass.  ``--only-h15``
+device line, so that such a run is never taken for a pass.  ``--only-h9``
+is the same for H9.  ``--only-h15``
 is the same for H1 and H5: their edge shapes, then both at H15_FS on
 H15_N Z-ordered points (``morton_points``), with the shared-memory route's
 time beside the register route's.  ``--only-assembly`` is the same for H2
@@ -509,6 +521,25 @@ def cost_h4(dt, N, F1, P):
     B1 = F1 - P
     return N * F1 * (F1 + 1) * _size(dt), N * (P ** 3 / 3 + B1 * P * P
                                                + B1 * B1 * P)
+
+
+def cost_h9(dt, N, F1, P, bw=64):
+    """(bytes, operations) of H9 on N fronts, as its schedule runs: each
+    front's lower triangle (the factor and the Schur cotangent in, the
+    front's cotangent out) read once and written once; the Schur product's
+    reverse 2 B1^2 P, and for each column block [j, k) of ``bw`` from the
+    last the triangular solve of its F1 - k panel rows (kb^2 each), Xbar^T C
+    (2 kb^2 (F1 - k)), the diagonal block's reverse (2/3 kb^3), and the
+    panel products Rbar (2 j kb (F1 - j)) and Bbar (2 j (F1 - k) kb)."""
+    B1 = F1 - P
+    ops = 2.0 * B1 * B1 * P
+    for j in range(0, P, bw):
+        k = min(P, j + bw)
+        kb = k - j
+        ops += (kb * kb * (F1 - k) + 2.0 * kb * kb * (F1 - k)
+                + 2.0 * kb ** 3 / 3 + 2.0 * j * kb * (F1 - j)
+                + 2.0 * j * (F1 - k) * kb)
+    return N * F1 * (F1 + 1) * _size(dt), N * ops
 
 
 def _size(dt):
@@ -1239,53 +1270,6 @@ def kernel_phase(spec, mf, seed, dev):
 
     checks.update(leaf_phase(mf, seed, dev))
 
-    # ---- H6 at the top internal level with the widest front (H3 and H4
-    # have phases of their own, at every level) ----
-    d_top = _widest_level(mf)
-    if d_top is not None:
-        lv = mf.levels[d_top]
-        N, P, B = lv.piv_ids.shape[0], lv.npiv, lv.nbord
-        F1 = P + B + 1
-        Bc1 = mf.levels[d_top + 1].nbord + 1
-        ext = _ext_aug(lv, F1, Bc1)
-        label = f"level {d_top} N={N} Bc1={Bc1} F1={F1}"
-        # H6 writes, as on the main path, into the child fronts' [Pc:, Pc:]
-        # blocks through a strided view of a (2N, F1c, F1c) buffer; the
-        # rest of the buffer must stay 0
-        h6 = checks["extend_add_bwd"] = KernelCheck("extend_add_bwd")
-        dfront = {torch.float64: _sym_randn((N, F1, F1), seed + 6, dev)}
-        dfront[torch.float32] = dfront[torch.float64].float()
-        ext_t = torch.as_tensor(ext, device=dev)
-        Pc = mf.levels[d_top + 1].npiv
-        F1c = Pc + Bc1
-
-        def mk_h6(dt):
-            return (dfront[dt], ext_t,
-                    torch.zeros(2 * N, F1c, F1c, dtype=dt, device=dev))
-
-        def blocks(buf):
-            return buf[:, Pc:, Pc:].unflatten(0, (-1, 2))
-
-        def h6_kernel(d, e, buf):
-            return (blocks(buf),) + FR.extend_add_bwd(d, e, blocks(buf)) \
-                + (buf,)
-
-        def h6_plain(d, e, buf):
-            return FR.extend_add_bwd_plain(d, e, Bc1) + (None,)
-
-        def h6_out(r):
-            """(dupd, d dvec, d rvec, largest |entry| of the buffer outside
-            the blocks); the plain version writes no buffer."""
-            buf = r[3]
-            if buf is None:
-                return r[:3] + (torch.zeros((), device=dev),)
-            rest = buf.clone()
-            rest[:, Pc:, Pc:] = 0.0
-            return r[:3] + (rest.abs().amax(),)
-
-        h6.run(label + f" F1c={F1c}", mk_h6, h6_kernel, h6_plain, h6_out,
-               lambda dt: cost_h6(dt, N, F1, Bc1), mutates=True)
-        del dfront
     return checks
 
 
@@ -1310,13 +1294,19 @@ def cost_h3(dt, N, F1, ext):
             + N * F1 * (F1 + 1) // 2 * sz), gathered
 
 
-def cost_h6(dt, N, F1, Bc1):
-    """(bytes, operations) of H6: a gather that reads the full front
-    cotangent and ext and adds into the children's full Bc1 x Bc1 blocks
-    (``out +=``, both triangles), writing d dvec and d rvec."""
+def cost_h6(dt, N, F1, Bc1, ext):
+    """(bytes, operations) of H6, the transpose of H3 on lower triangles:
+    ext read once, of the front cotangent's lower triangle the entries the
+    children gather (those H3 reads of them) and its diagonal and row F1-1
+    read once, each child block's lower triangle read and written once
+    (``out +=``), d dvec and d rvec written; one addition a gathered
+    entry."""
     sz = _size(dt)
-    return (N * F1 * F1 * sz + 2 * N * F1 * 4 + 2 * N * Bc1 * Bc1 * sz
-            + 2 * N * F1 * sz), 0.0
+    b = (ext >= 0).sum(-1)
+    gathered = float((b * (b + 1) // 2).sum())
+    return (ext.size * 4 + gathered * sz + 2 * N * F1 * sz
+            + 2 * 2 * N * Bc1 * (Bc1 + 1) // 2 * sz + 2 * N * F1 * sz), \
+        gathered
 
 
 def _ext_aug(lv, F1, Bc1):
@@ -1394,36 +1384,42 @@ def leaf_phase(mf, seed, dev):
                     lambda: torch.tril(FR.leaf_assemble(*args)))
     del args
 
+    # H7 reads the cotangent's lower triangle, as H9 leaves it: the kernel
+    # gets NaN above the diagonal, the plain version the symmetric matrix
     h7 = KernelCheck("leaf_assemble_bwd")
-    dfront = {torch.float64: _sym_randn((N, F1, F1), seed + 7, dev)}
+    dfront = {torch.float64: _nan_upper(_sym_randn((N, F1, F1), seed + 7,
+                                                   dev))}
     dfront[torch.float32] = dfront[torch.float64].float()
 
     def cost_h7(dt):
-        # dfront, u, epos, rhs_elem in; du, d rhs_elem, d dvec, d rvec out
+        # dfront's lower triangle, u, epos, rhs_elem in; du, d rhs_elem,
+        # d dvec, d rvec out
         sz = _size(dt)
-        return (N * F1 * F1 * sz + epos.size * 4 + 2 * (u.size + re.size) * sz
-                + 2 * N * F1 * sz), leaf_ops
+        return (N * F1 * (F1 + 1) // 2 * sz + epos.size * 4
+                + 2 * (u.size + re.size) * sz + 2 * N * F1 * sz), leaf_ops
 
     h7.run(label, lambda dt: (dfront[dt],) + mk_leaf(dt)[:3],
-           FR.leaf_assemble_bwd, FR.leaf_assemble_bwd_plain, lambda r: r,
-           cost_h7)
+           FR.leaf_assemble_bwd,
+           lambda d, *a: FR.leaf_assemble_bwd_plain(FR._sym_lower(d), *a),
+           lambda r: r, cost_h7)
     return {"leaf_assemble": h2, "leaf_assemble_bwd": h7}
 
 
-def eadd_level_phase(mf, dev, seed):
+def eadd_level_phase(mf, dev, seed, h6=True):
     """H3 at every internal level of the plan on the plan's own ext maps
     and symmetric normal child blocks, read, as on the main path, through a
     strided view of (2N, F1c, F1c) child fronts: the kernel equals its
     plain version bit for bit in float64 and float32, two launches give the
     same bits; one row a level and dtype (ms, bound, the bound's share of
-    the time) and the sums over the levels, with H6's bound summed alike
-    (H6 is timed at the widest level only).  Returns (rows, sums, the
-    KernelCheck, whose main shape is the widest level)."""
+    the time) and the sums over the levels.  With ``h6`` also H6 at every
+    level (``h6_level_check``), its rows and sums alike.  Returns (rows,
+    sums, H3's KernelCheck, H6's or None; the main shape of both is the
+    widest level)."""
     from gpvecchia_torch.linalg import frontal as FR
     chk = KernelCheck("extend_add")
+    h6_chk = KernelCheck("extend_add_bwd") if h6 else None
     rows = []
     d_main = _widest_level(mf)
-    h6_bound = {torch.float32: 0.0, torch.float64: 0.0}
     for d in range(mf.depth):
         lv, lc = mf.levels[d], mf.levels[d + 1]
         N, P = lv.piv_ids.shape[0], lv.npiv
@@ -1461,7 +1457,6 @@ def eadd_level_phase(mf, dev, seed):
             args = mk(dt)
             _same_twice(f"extend_add level {d} {dt}",
                         lambda: torch.tril(FR.extend_add(*args)))
-            h6_bound[dt] += _bound(*cost_h6(dt, N, F1, Bc1), dt)[0]
         del kids, vec, args
         torch.cuda.empty_cache()
         for row in chk.rows[-2:]:
@@ -1469,6 +1464,12 @@ def eadd_level_phase(mf, dev, seed):
                              ms=row["ms"], plain_ms=row["plain_ms"],
                              bound_ms=row["bound_ms"],
                              share=row["bound_ms"] / row["ms"]))
+        if h6:
+            h6_level_check(h6_chk, d, N, F1, Pc, Bc1, ext, ext_t, d == d_main,
+                           dev, seed)
+            for r, row in zip(rows[-2:], h6_chk.rows[-2:]):
+                r.update(h6_ms=row["ms"], h6_plain_ms=row["plain_ms"],
+                         h6_bound_ms=row["bound_ms"])
     sums = {}
     for dt in (torch.float32, torch.float64):
         name = str(dt).split(".")[-1]
@@ -1483,12 +1484,73 @@ def eadd_level_phase(mf, dev, seed):
                 f" | {100 * r['share']:5.1f} %")
         ms, bound = sum(r["ms"] for r in rs), sum(r["bound_ms"] for r in rs)
         sums[name] = dict(levels=len(rs), extend_add_ms=ms,
-                          extend_add_bound_ms=bound,
-                          extend_add_bwd_bound_ms=h6_bound[dt])
+                          extend_add_bound_ms=bound)
         log(f"  H3 summed over the {len(rs)} internal levels, {name}: kernel "
-            f"{ms:.3f} ms, bound {bound:.3f} ms ({100 * bound / ms:.1f} %); "
-            f"H6's bound summed alike {h6_bound[dt]:.3f} ms")
-    return rows, sums, chk
+            f"{ms:.3f} ms, bound {bound:.3f} ms ({100 * bound / ms:.1f} %)")
+        if h6:
+            log(f"  H6 by level, {name}: level N F1 Bc1 | kernel ms | plain "
+                f"ms | bound ms | share of bound")
+            for r in rs:
+                log(f"    {r['level']:2d} {r['N']:5d} {r['F1']:5d} "
+                    f"{r['Bc1']:5d} | {r['h6_ms']:8.3f} | "
+                    f"{r['h6_plain_ms']:8.3f} | {r['h6_bound_ms']:7.3f} | "
+                    f"{100 * r['h6_bound_ms'] / r['h6_ms']:5.1f} %")
+            ms6 = sum(r["h6_ms"] for r in rs)
+            b6 = sum(r["h6_bound_ms"] for r in rs)
+            sums[name].update(extend_add_bwd_ms=ms6,
+                              extend_add_bwd_bound_ms=b6)
+            log(f"  H6 summed over the {len(rs)} internal levels, {name}: "
+                f"kernel {ms6:.3f} ms, bound {b6:.3f} ms "
+                f"({100 * b6 / ms6:.1f} %)")
+    return rows, sums, chk, h6_chk
+
+
+def h6_level_check(chk, d, N, F1, Pc, Bc1, ext, ext_t, main, dev, seed):
+    """H6 at one internal level on the plan's ext map: it adds, as on the
+    main path, into the child fronts' [Pc:, Pc:] blocks through a strided
+    view of a (2N, F1c, F1c) buffer of zeros, from a cotangent whose
+    strict upper triangle is NaN; the plain version gets the symmetric
+    cotangent.  The lower triangles of the blocks and d dvec, d rvec equal
+    the plain version's bit for bit, and the rest of the buffer (the
+    blocks' upper triangles too) stays 0."""
+    from gpvecchia_torch.linalg import frontal as FR
+    F1c = Pc + Bc1
+    dfront = {torch.float64: _nan_upper(_sym_randn((N, F1, F1), seed + 6 + d,
+                                                   dev))}
+    dfront[torch.float32] = dfront[torch.float64].float()
+    low = torch.ones(Bc1, Bc1, dtype=torch.bool, device=dev).tril()
+
+    def mk(dt):
+        return (dfront[dt], ext_t,
+                torch.zeros(2 * N, F1c, F1c, dtype=dt, device=dev))
+
+    def blocks(buf):
+        return buf[:, Pc:, Pc:].unflatten(0, (-1, 2))
+
+    def kernel(dd, e, buf):
+        return (blocks(buf),) + FR.extend_add_bwd(dd, e, blocks(buf)) \
+            + (buf,)
+
+    def plain(dd, e, buf):
+        return FR.extend_add_bwd_plain(FR._sym_lower(dd), e, Bc1) + (None,)
+
+    def out_of(r):
+        """(lower triangles of dupd, d dvec, d rvec, largest |entry| of the
+        buffer outside those triangles); the plain version writes no
+        buffer."""
+        buf = r[3]
+        rest = torch.zeros((), device=dev)
+        if buf is not None:
+            rest = buf.clone()
+            blocks(rest).masked_fill_(low, 0.0)
+            rest = rest.abs().amax()
+        return (r[0].masked_fill(~low, 0.0),) + r[1:3] + (rest,)
+
+    chk.run(f"level {d} N={N} Bc1={Bc1} F1={F1} F1c={F1c}", mk, kernel,
+            plain, out_of, lambda dt: cost_h6(dt, N, F1, Bc1, ext),
+            mutates=True, main=main, rule=_exact_rule)
+    del dfront
+    torch.cuda.empty_cache()
 
 
 def assembly_edge_phase(dev, seed, guard=4096):
@@ -1707,6 +1769,132 @@ def h4_level_phase(shapes, dev, seed):
     return out, chk
 
 
+# the cotangents of logdet and quad H9's checks seed with
+H9_SEEDS = (0.7, -1.3)
+
+
+def _h9_inputs(N, F1, P, seed, dev):
+    """float64 fronts as H9 finds them on the main path: SPD fronts
+    factored by H4's plain version, with a symmetric normal Schur
+    cotangent in the lower triangle of [P:, P:]."""
+    from gpvecchia_torch.linalg import frontal as FR
+    fr = FR.front_factor_plain(_spd_fronts(N, F1, seed, dev), P)
+    fr[:, P:, P:] = torch.tril(_sym_randn((N, F1 - P, F1 - P), seed + 1, dev))
+    return fr
+
+
+def _h9_call(fn, P):
+    """fn(front, P, g_logdet, g_quad) with H9_SEEDS as 0-dim tensors of the
+    front's dtype on its device."""
+    def call(front):
+        gl, gq = (torch.tensor(v, dtype=front.dtype, device=front.device)
+                  for v in H9_SEEDS)
+        return fn(front, P, gl, gq)
+    return call
+
+
+def h9_edge_phase(dev, seed):
+    """H9 at the edge shapes of its schedule (``H9_EDGE_SHAPES``), kernel
+    vs plain version in float64 and float32 by KernelCheck's rule; the
+    kernel's inputs carry NaN in their strict upper triangles, and its
+    lower-triangle outputs must equal, bit for bit, those it gives on the
+    clean inputs; the guard values right after the batch stay untouched."""
+    from gpvecchia_torch.linalg import frontal as FR
+    worst = {torch.float64: 0.0, torch.float32: 0.0}
+    guard = 4096
+    for idx, (N, F1, P) in enumerate(FR.H9_EDGE_SHAPES):
+        fr = _h9_inputs(N, F1, P, seed + idx, dev)
+        ref = torch.tril(_h9_call(FR.front_factor_bwd_plain, P)(fr.clone()))
+        scale = ref.abs().max().item()
+        for dt in (torch.float64, torch.float32):
+            x = fr.to(dt)
+            buf = torch.full((N * F1 * F1 + guard,), 7.0, dtype=dt,
+                             device=dev)
+            dirty = buf[:N * F1 * F1].view(N, F1, F1)
+            dirty.copy_(_nan_upper(x))
+            k = torch.tril(_h9_call(FR.front_factor_bwd, P)(dirty))
+            clean = torch.tril(_h9_call(FR.front_factor_bwd, P)(x.clone()))
+            pl = torch.tril(_h9_call(FR.front_factor_bwd_plain, P)(x.clone()))
+            torch.cuda.synchronize()
+            if not torch.equal(k, clean):
+                raise AssertionError(f"front_factor_bwd N={N} F1={F1} P={P} "
+                                     f"{dt}: the upper triangle reached the "
+                                     f"output")
+            if not bool((buf[N * F1 * F1:] == 7.0).all()):
+                raise AssertionError(f"front_factor_bwd N={N} F1={F1} P={P} "
+                                     f"{dt}: wrote past the batch")
+            err, held, tol = _rule(k.double(), pl.double(), ref, scale, dt)
+            if not (held <= tol and np.isfinite(err)):
+                raise AssertionError(
+                    f"front_factor_bwd N={N} F1={F1} P={P} {dt}: kernel "
+                    f"disagrees with its plain version: {held:.3e} > "
+                    f"{tol:.3e} (scale {scale:.3e})")
+            worst[dt] = max(worst[dt], held / tol if tol > 0 else held)
+        del fr, ref, x, buf, dirty, k, clean, pl
+    torch.cuda.empty_cache()
+    log(f"  front_factor_bwd edge shapes: {len(FR.H9_EDGE_SHAPES)} shapes "
+        f"pass in f64 and f32, NaN upper triangles ignored; largest held/tol"
+        f" f64 {worst[torch.float64]:.3f}, f32 {worst[torch.float32]:.3f}")
+
+
+def h9_level_phase(shapes, dev, seed):
+    """H9 at each (N, F1, P) of ``shapes`` (the levels of a multifrontal
+    plan, root first) on fronts as ``_h9_inputs`` makes them, against its
+    plain version (``front_factor_vjp``: cuBLAS triangular solves and
+    products, and the store): one row a level and dtype with the kernel's,
+    the plain version's and the bound's milliseconds, the achieved TFLOP/s
+    and the errors (float64 against the plain version, float32 against the
+    float64 plain version), and the sums over the levels of the times
+    scaled to each level's real number of fronts: H9's share of one
+    value+grad.  Returns the rows and the KernelCheck, whose last level (the
+    leaf) is its main shape."""
+    from gpvecchia_torch.linalg import frontal as FR
+    chk = KernelCheck("front_factor_bwd")
+    out = []
+    for lvl, (N, F1, P) in enumerate(shapes):
+        n_run = min(N, max(1, int(H4_LEVEL_BYTES // (4 * F1 * F1))))
+        fr = _h9_inputs(n_run, F1, P, seed + lvl, dev)
+        fronts = {torch.float64: fr, torch.float32: fr.float()}
+
+        def cost(dt):
+            return cost_h9(dt, n_run, F1, P, FR.H9_BW)
+
+        chk.run(f"level {lvl} N={n_run}/{N} F1={F1} P={P}",
+                lambda dt: (fronts[dt].clone(),),
+                _h9_call(FR.front_factor_bwd, P),
+                _h9_call(FR.front_factor_bwd_plain, P), torch.tril, cost,
+                mutates=True, main=lvl == len(shapes) - 1)
+        del fronts, fr
+        torch.cuda.empty_cache()
+        for row in chk.rows[-2:]:
+            dt = getattr(torch, row["dtype"])
+            scale = N / n_run
+            out.append(dict(level=lvl, N=N, N_run=n_run, F1=F1, P=P,
+                            dtype=row["dtype"], ms=row["ms"] * scale,
+                            plain_ms=row["plain_ms"] * scale,
+                            bound_ms=row["bound_ms"] * scale,
+                            bound_by=row["bound_by"],
+                            tflops=cost(dt)[1] / (row["ms"] * 1e9),
+                            max_abs_err=row["max_abs_err"],
+                            held_err=row["held_err"], tol=row["tol"],
+                            scale=row["scale"]))
+    for name in ("float32", "float64"):
+        rows = [r for r in out if r["dtype"] == name]
+        log(f"  H9 by level, {name} (times scaled to the level's N): level "
+            f"N F1 P | kernel ms | plain ms | bound ms | TFLOP/s | held err "
+            f"(tol)")
+        for r in rows:
+            log(f"    {r['level']:2d} {r['N']:5d} {r['F1']:5d} {r['P']:5d} | "
+                f"{r['ms']:8.3f} | {r['plain_ms']:8.3f} | "
+                f"{r['bound_ms']:7.3f} ({r['bound_by']}) | {r['tflops']:6.2f}"
+                f" | {r['held_err']:.2e} ({r['tol']:.2e})")
+        log(f"  H9 summed over the {len(rows)} levels, {name}: kernel "
+            f"{sum(r['ms'] for r in rows):.3f} ms, plain "
+            f"{sum(r['plain_ms'] for r in rows):.3f} ms, bound "
+            f"{sum(r['bound_ms'] for r in rows):.3f} ms")
+    return out, chk
+
+
 def _level_shapes(mf):
     """(N, F1, P) of each level of a multifrontal plan, root first."""
     return tuple((lv.piv_ids.shape[0], lv.npiv + lv.nbord + 1, lv.npiv)
@@ -1797,8 +1985,9 @@ def grad_phase(spec, z, big, counters):
     """Value and gradient on the card; returns (results, launches, peak).
     Each kernel of ``counters`` must launch in this phase."""
     import gpvecchia_torch as gt
+    from gpvecchia_torch.linalg import frontal as FR
     nvec = np.linspace(0.05, 0.15, len(z))
-    for k in counters:
+    for k in counters + (FR.front_factor_vjp,):
         k.launches = 0
     torch.cuda.reset_peak_memory_stats()
     res = {}
@@ -1838,11 +2027,14 @@ def grad_phase(spec, z, big, counters):
             f"value+grad {res[name]['value_grad_ms']:.2f} ms over 5")
     launches = {k.__name__: k.launches for k in counters}
     peak = torch.cuda.max_memory_allocated()
-    log(f"  launches during the gradient phase: {launches}")
+    log(f"  launches during the gradient phase: {launches}; H9's plain "
+        f"version front_factor_vjp ran {FR.front_factor_vjp.launches} times")
     log(f"  peak device memory: {peak / 2**30:.3f} GiB")
     if min(k.launches for k in counters) <= 0:
         raise AssertionError(f"a kernel of the gradient path never "
                              f"launched: {launches}")
+    if FR.front_factor_vjp.launches:
+        raise AssertionError("the card's gradient ran H9's plain version")
     if big:
         return res, launches, peak
 
@@ -2699,7 +2891,7 @@ def _plan_kernel_checks(label, mf, dev, seed):
     log(f"  {label} plan: H2, H7 at its leaf, H3, H4 at its levels against "
         f"their plain versions:")
     leaf_phase(mf, seed, dev)
-    _, sums, _ = eadd_level_phase(mf, dev, seed)
+    _, sums, _, _ = eadd_level_phase(mf, dev, seed, h6=False)
     rows, _ = h4_level_phase([s for s in _level_shapes(mf) if s[2] > 0],
                              dev, seed)
     h4 = [r for r in rows if r["dtype"] == "float32"]
@@ -3428,7 +3620,7 @@ def _mesh_counters():
     from gpvecchia_torch.linalg import frontal as FR
     return (MS.matern_solve_e0, FR.leaf_assemble, FR.extend_add,
             FR.front_factor, MS.matern_solve_e0_bwd, FR.extend_add_bwd,
-            FR.leaf_assemble_bwd)
+            FR.leaf_assemble_bwd, FR.front_factor_bwd)
 
 
 def _grad_rel(got, ref):
@@ -3705,6 +3897,10 @@ def main():
                     help="a tool for work on H4: build, H4's edge shapes and "
                          "H4 at the 14 level shapes of n=1e6, m=40, and "
                          "nothing else; prints no final device line")
+    ap.add_argument("--only-h9", action="store_true",
+                    help="a tool for work on H9: build, H9's edge shapes "
+                         "and H9 at the 14 level shapes of n=1e6, m=40, and "
+                         "nothing else; prints no final device line")
     ap.add_argument("--only-assembly", action="store_true",
                     help="a tool for work on H2 and H3: build, their edge "
                          "shapes, the spec and plan of --n and --m, H2 and "
@@ -3768,6 +3964,12 @@ def main():
         rows, _ = h4_level_phase(H4_LEVELS_1E6, dev, args.seed)
         print(json.dumps({"h4_levels": rows, "smi": smi}))
         return
+    if args.only_h9:
+        log("H9 alone (no spec, no plan; not a pass of this script):")
+        h9_edge_phase(dev, args.seed)
+        rows, _ = h9_level_phase(H4_LEVELS_1E6, dev, args.seed)
+        print(json.dumps({"h9_levels": rows, "smi": smi}))
+        return
     if args.only_h15:
         log("H1 and H5 alone (no spec, no plan; not a pass of this script):")
         h15_edge_phase(dev, args.seed)
@@ -3828,7 +4030,7 @@ def main():
         log("H2 and H3 alone (not a pass of this script):")
         assembly_edge_phase(dev, args.seed)
         leaf = leaf_phase(mf, args.seed, dev)["leaf_assemble"]
-        rows, sums, _ = eadd_level_phase(mf, dev, args.seed)
+        rows, sums, _, _ = eadd_level_phase(mf, dev, args.seed)
         print(json.dumps({"leaf_assemble": leaf.rows, "eadd_levels": {
             "sums": sums, "rows": rows}, "smi": smi}))
         return
@@ -3836,11 +4038,15 @@ def main():
     log("kernel phase (kernel vs plain version on the card):")
     checks = kernel_phase(spec, mf, args.seed, dev)
     assembly_edge_phase(dev, args.seed)
-    eadd_rows, eadd_sums, h3 = eadd_level_phase(mf, dev, args.seed)
+    eadd_rows, eadd_sums, h3, h6 = eadd_level_phase(mf, dev, args.seed)
     if h3.rows:
         checks["extend_add"] = h3
+        checks["extend_add_bwd"] = h6
     h4_edge_phase(dev, args.seed)
     h4_levels, checks["front_factor"] = h4_level_phase(
+        _level_shapes(mf), dev, args.seed)
+    h9_edge_phase(dev, args.seed)
+    h9_levels, checks["front_factor_bwd"] = h9_level_phase(
         _level_shapes(mf), dev, args.seed)
 
     log("slice phase:")
@@ -3848,7 +4054,7 @@ def main():
     counters = (MS.matern_solve_e0, FR.leaf_assemble, FR.extend_add,
                 FR.front_factor)
     bwd_counters = (MS.matern_solve_e0_bwd, FR.extend_add_bwd,
-                    FR.leaf_assemble_bwd)
+                    FR.leaf_assemble_bwd, FR.front_factor_bwd)
     for k in counters:
         k.launches = 0
     torch.cuda.reset_peak_memory_stats()
@@ -3984,6 +4190,7 @@ def main():
         "leaf_assemble": "gpvecchia_tpu/linalg/pallas_level.py:594",
         "extend_add": "gpvecchia_tpu/linalg/pallas_level.py:344",
         "front_factor": "gpvecchia_tpu/linalg/pallas_frontal.py:180",
+        "front_factor_bwd": "gpvecchia_tpu/linalg/pallas_frontal.py:249",
         "extend_add_bwd": "gpvecchia_tpu/linalg/pallas_eadd.py:117",
         "leaf_assemble_bwd": "gpvecchia_tpu/linalg/pallas_level.py:594"}
     # launches: each kernel's count on the path it serves, with the counts
@@ -4038,7 +4245,8 @@ def main():
                       "general_launches": gen_launches,
                       "esqe_launches": esqe_launches,
                       "eadd_levels": {"sums": eadd_sums, "rows": eadd_rows},
-                      "h4_levels": h4_levels, "smi": smi},
+                      "h4_levels": h4_levels, "h9_levels": h9_levels,
+                      "smi": smi},
                      default=float))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -1,5 +1,6 @@
 // Multifrontal level kernels: H2 leaf_assemble, H3 extend_add and
-// H4 front_factor.  All fronts are augmented: front row/column F1-1 carries
+// H4 front_factor, and their backward: H9 front_factor_bwd, H6
+// extend_add_bwd and H7 leaf_assemble_bwd.  All fronts are augmented: front row/column F1-1 carries
 // the right-hand side, so the factor's border solve yields y = L_pp^{-1} b
 // in row F1-1 and the Schur block carries the RHS update to the parent
 // (the formulation of gpvecchia_tpu/linalg/pallas_level.py:24-28).
@@ -109,6 +110,43 @@
 // memory would not); the root's 330 small dependent launches (P = 3494:
 // 110 diagonal tiles, 110 TRSMs, 82 inner and 28 symmetric updates).
 //
+// H9 front_factor_bwd is the pullback of H4, in place: the custom VJPs of
+// linalg/pallas_frontal.py `factor_fronts` (K7, :241-270) and of the factor
+// halves of `fused_level` / `fused_leaf` (K4/K5, pallas_level.py:422-484,
+// :645-687), which the JAX package computes in XLA (`_factor_pullback`,
+// `_chol_vjp`: four triangular solves and five products on front-sized
+// temporaries).  In: the front as H4 left it (L_pp, L_bp_aug in the lower
+// [:, :P]) with the symmetric cotangent of the Schur block in the lower
+// triangle of [P:, P:], and the cotangents of logdet and quad.  Out: the
+// front's symmetric cotangent 1/2 (X + X^T) in its lower triangle.  The
+// partial factor is the first P columns of a Cholesky of the F1 x F1
+// front, so its pullback is I. Murray's blocked reverse sweep
+// ("Differentiation of the Cholesky decomposition", arXiv:1602.07527, the
+// left-looking blocked algorithm) over those P columns, after the Schur
+// product's reverse Lbar_bp -= 2 dupd_s L_bp.  What bounds it on an H100
+// is operations: the symmetric-times-panel product B1^2 P at every level
+// but the root, and 2 F1 P^2 - 4/3 P^3 in the sweep's two panel products.
+// Design: no front-sized temporary.  The accumulating cotangent Abar of
+// the first P columns lives transposed in the free upper triangle
+// (G[c][r] = Abar[r][c], r > c; its diagonal in an (N, P) buffer), where
+// its columns are rows, contiguous.  Column blocks of H9_BW from the last:
+// a triangular solve of the block's panel cotangent by its diagonal block
+// (one thread a row, the row in registers), Xbar^T C (a product of depth
+// F1 - k into a (N, 64, 64) buffer), the reverse of the 64 x 64 diagonal
+// block in closed form (one block a front: a product and two triangular
+// sweeps, a column or a row of 64 a thread in registers), then the two panel
+// products Rbar -= [Esym; Xbar]^T [R; B] and Bbar -= Xbar R.  Once a block
+// is done L's columns there are dead, and its cotangent goes to the lower
+// triangle.  Every product is one register-tiled SIMT kernel (64 x 64 or
+// 128 x 128 outputs a block, 4 x 4 or 8 x 8 a thread, k slabs staged
+// transposed in shared memory through registers while the slab before is
+// multiplied) that reads its operands through strides (the symmetric Schur
+// cotangent through its lower triangle) and splits a deep product over
+// blocks when the output is too small to fill the card; the partial sums
+// are added in a fixed order, so there are no atomics and two runs give the
+// same bits.  What is left: the products run SIMT in float32 (no tensor
+// cores), and the root's 55 blocks are a chain of small launches.
+//
 // H6 extend_add_bwd replaces K8b, linalg/pallas_eadd.py `_bwd_kernel`
 // (pallas_call at :117, `_eadd_bwd_impl`), and the `dch` halves of the level
 // and assembly VJPs (pallas_level.py:436-486, 831-883): each child's
@@ -117,10 +155,13 @@
 // cotangents of the diagonal adds (diag dfront) and of the RHS vector
 // (row + column F1-1).  K8b forms G^T dfront G with two one-hot matmuls on
 // the MXU; here it is what it computes, a pure gather, bound by device
-// memory: one thread per output entry, coalesced along the child row (inv
-// is monotone), written through strides into the child fronts' [P_c:, P_c:]
-// blocks, which the backward no longer needs, so no (N, 2, Bc1, Bc1)
-// array is allocated.
+// memory, and the exact transpose of H3: one block per 64 x 64 tile of a
+// child block's lower triangle (grid: tiles x fronts x children), the
+// tile's rows' parent positions in shared memory, a lane's two columns' in
+// registers, all of a thread's loads before its stores.  inv is monotone,
+// so a lower entry reads a lower entry of dfront, which is all H9 writes;
+// the sums go through strides into the child fronts' [P_c:, P_c:] blocks,
+// where H9 reads them next, so no (N, 2, Bc1, Bc1) array is allocated.
 //
 // H7 leaf_assemble_bwd replaces the `du` half of the leaf VJP
 // (pallas_level.py:655-685): for front = sum_e a_e a_e^T, d a_e =
@@ -129,7 +170,8 @@
 // and multiplies by dfront (2e11 FLOP at n=1e6, m=40); here one thread per
 // (element, slot) walks the slot's front row at the element's K+1
 // positions, (K+1)^2 scattered reads per element (1.8e9 at n=1e6, m=40),
-// and is bound by those reads.
+// and is bound by those reads; it reads dfront's lower triangle (an entry
+// above the diagonal is read at its mirror), as H9 leaves it.
 
 #include <cuda_runtime.h>
 #include <math.h>
@@ -164,6 +206,13 @@ constexpr int EA_THREADS = 256;
 static_assert(EA_TILE % (EA_THREADS / 32) == 0 && EA_TILE % 32 == 0,
               "whole rows a warp and whole columns a lane");
 static_assert(OW % NB == 0, "whole inner panels per outer panel");
+constexpr int H9_BW = 64;        // H9: column block
+constexpr int H9_LD = H9_BW + 4; // its rows in shared memory: 16-byte aligned
+constexpr int H9_TRSM_ROWS = 128;
+constexpr int H9_THREADS = 256;  // H9's seed and final kernels
+constexpr int GM_THREADS = 256;  // H9's products: 16 x 16 threads
+constexpr int GM_SPLIT_DEPTH = 256;  // least depth a split of a product gets
+constexpr int GM_FILL = 2 * 132;     // blocks below which a product splits
 
 // Rows [band_start(b), band_start(b + 1)) form band b of R: the least r
 // with r (r + 1) / 2 * R >= b * F1 (F1 + 1) / 2, so the bands' lower-triangle
@@ -698,6 +747,347 @@ syrk_update_kernel(T* front, int F1, int r0, int c1, int k0, int k1) {
   }
 }
 
+// ---------------------------------------------------------------- H9 ----
+
+// seed: rows c < P of the upper triangle hold G = Abar^T; Abar starts as
+// Lbar: 0 but for 2 g_quad y in row F1-1 (G's column F1-1), and its
+// diagonal 2 g_logdet / L_cc in gdiag.  One warp a row.
+template <typename T>
+__global__ void h9_seed_kernel(T* __restrict__ front, int F1, int P,
+                               const T* __restrict__ gl,
+                               const T* __restrict__ gq,
+                               T* __restrict__ gdiag) {
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int c = blockIdx.x * (H9_THREADS / 32) + warp;
+  if (c >= P) return;
+  T* A = front + (long)blockIdx.y * F1 * F1;
+  T* row = A + (long)c * F1;
+  const T y2 = T(2) * gq[0] * A[(long)(F1 - 1) * F1 + c];
+  for (int col = c + 1 + lane; col < F1; col += 32)
+    row[col] = col == F1 - 1 ? y2 : T(0);
+  if (lane == 0) gdiag[(long)blockIdx.y * P + c] = T(2) * gl[0] / row[c];
+}
+
+// whether a slab's staging runs along k (else along x): where k is
+// contiguous in memory; a symmetric operand's slab wholly above its
+// diagonal (k < x) is read transposed
+template <int KS, bool SYM>
+__device__ __forceinline__ bool gm_kfast(long sx, long sk, int x0, int k0) {
+  if (SYM && k0 + KS <= x0) return sx == 1;
+  return sk == 1;
+}
+
+// a thread's R values of a BT x KS slab of an operand whose element (x, k)
+// is p[x sx + k sk] (SYM: p[k sx + x sk] where k < x, the mirror of the
+// lower triangle); 0 past xlim and klim
+template <typename T, int BT, int KS, bool SYM>
+__device__ __forceinline__ void gm_load(T* r, const T* p, long sx, long sk,
+                                        int x0, int xlim, int k0, int klim,
+                                        bool kfast) {
+  constexpr int R = BT * KS / GM_THREADS;
+#pragma unroll
+  for (int u = 0; u < R; ++u) {
+    const int e = threadIdx.x + GM_THREADS * u;
+    const int xx = kfast ? e / KS : e % BT, kk = kfast ? e % KS : e / BT;
+    const int x = x0 + xx, k = k0 + kk;
+    T v = T(0);
+    if (x < xlim && k < klim)
+      v = (SYM && k < x) ? p[x * sk + k * sx] : p[x * sx + k * sk];
+    r[u] = v;
+  }
+}
+
+// ... stored transposed, [k][x]
+template <typename T, int BT, int KS, int S>
+__device__ __forceinline__ void gm_store(T (*sm)[S], const T* r, bool kfast) {
+  constexpr int R = BT * KS / GM_THREADS;
+#pragma unroll
+  for (int u = 0; u < R; ++u) {
+    const int e = threadIdx.x + GM_THREADS * u;
+    const int xx = kfast ? e / KS : e % BT, kk = kfast ? e % KS : e / BT;
+    sm[kk][xx] = r[u];
+  }
+}
+
+// H9's products: C = (beta ? C : 0) + alpha A B over N fronts, A (M x K)
+// with element (m, k) at a[n a_n + m a_sx + k a_sk], B (K x Nn) with
+// element (k, x) at b[n b_n + x b_sx + k b_sk] (SYM: B symmetric, read
+// through its lower triangle k >= x), C (M x Nn) at c[n c_n + m c_rs +
+// x c_cs].  The operands and C lie in the same fronts (disjoint regions),
+// so nothing is __restrict__.  One BT x BT tile of C a block (grid: tiles x
+// splits x fronts), 16 x 16 threads of TMS x TMS outputs in groups of 4
+// consecutive rows and columns (16-byte shared loads), k slabs of KS staged
+// transposed in shared memory (rows padded by 4) in two buffers: the next
+// slab comes into registers while the current one is multiplied.  With
+// splits, block (tile, s) sums k in [s kchunk, (s + 1) kchunk) into
+// work[n][s] (M x Nn), which h9_reduce_kernel adds in order of s.
+template <typename T, int BT, bool SYM>
+__global__ void __launch_bounds__(GM_THREADS)
+h9_gemm_kernel(const T* a, long a_n, long a_sx, long a_sk, const T* b,
+               long b_n, long b_sx, long b_sk, T* c, long c_n, long c_rs,
+               long c_cs, int M, int Nn, int K, int kchunk, int tiles_n,
+               T alpha, int beta, T* work) {
+  constexpr int KS = BT == 128 ? 8 : 16;
+  constexpr int S = BT + 4;
+  constexpr int TMS = BT / 16, G = TMS / 4, GS = BT / G;
+  constexpr int R = BT * KS / GM_THREADS;
+  static_assert(R * GM_THREADS == BT * KS && TMS % 4 == 0, "slab shape");
+  __shared__ __align__(16) T As[2][KS][S];
+  __shared__ __align__(16) T Bs[2][KS][S];
+  const long n = blockIdx.z;
+  const int split = blockIdx.y, nsplit = gridDim.y;
+  const int tm = blockIdx.x / tiles_n, tn = blockIdx.x - tm * tiles_n;
+  const int m0 = tm * BT, n0 = tn * BT;
+  const int kb0 = split * kchunk, kb1 = min(K, kb0 + kchunk);
+  const T* pa = a + n * a_n;
+  const T* pb = b + n * b_n;
+  const int tx = threadIdx.x % 16, ty = threadIdx.x / 16;
+  T acc[TMS][TMS];
+#pragma unroll
+  for (int p = 0; p < TMS; ++p)
+#pragma unroll
+    for (int q = 0; q < TMS; ++q) acc[p][q] = T(0);
+  T ra[R], rb[R];
+  bool kfa = gm_kfast<KS, false>(a_sx, a_sk, m0, kb0);
+  bool kfb = gm_kfast<KS, SYM>(b_sx, b_sk, n0, kb0);
+  gm_load<T, BT, KS, false>(ra, pa, a_sx, a_sk, m0, M, kb0, kb1, kfa);
+  gm_load<T, BT, KS, SYM>(rb, pb, b_sx, b_sk, n0, Nn, kb0, kb1, kfb);
+  gm_store<T, BT, KS, S>(As[0], ra, kfa);
+  gm_store<T, BT, KS, S>(Bs[0], rb, kfb);
+  __syncthreads();
+  int buf = 0;
+  for (int kb = kb0; kb < kb1; kb += KS) {
+    const bool next = kb + KS < kb1;
+    if (next) {
+      kfa = gm_kfast<KS, false>(a_sx, a_sk, m0, kb + KS);
+      kfb = gm_kfast<KS, SYM>(b_sx, b_sk, n0, kb + KS);
+      gm_load<T, BT, KS, false>(ra, pa, a_sx, a_sk, m0, M, kb + KS, kb1, kfa);
+      gm_load<T, BT, KS, SYM>(rb, pb, b_sx, b_sk, n0, Nn, kb + KS, kb1, kfb);
+    }
+#pragma unroll
+    for (int k = 0; k < KS; ++k) {
+      T av[TMS], bv[TMS];
+#pragma unroll
+      for (int g = 0; g < G; ++g) {
+        ld4(&As[buf][k][g * GS + 4 * ty], av + 4 * g);
+        ld4(&Bs[buf][k][g * GS + 4 * tx], bv + 4 * g);
+      }
+#pragma unroll
+      for (int p = 0; p < TMS; ++p)
+#pragma unroll
+        for (int q = 0; q < TMS; ++q) acc[p][q] += av[p] * bv[q];
+    }
+    if (next) {
+      // the other buffer was last read before the barrier that ended the
+      // slab before this one
+      gm_store<T, BT, KS, S>(As[buf ^ 1], ra, kfa);
+      gm_store<T, BT, KS, S>(Bs[buf ^ 1], rb, kfb);
+    }
+    __syncthreads();
+    buf ^= 1;
+  }
+  T* pc = nsplit > 1 ? work + (n * nsplit + split) * (long)M * Nn
+                     : c + n * c_n;
+  const long rs = nsplit > 1 ? (long)Nn : c_rs, cs = nsplit > 1 ? 1 : c_cs;
+#pragma unroll
+  for (int p = 0; p < TMS; ++p) {
+    const int m = m0 + (p / 4) * GS + 4 * ty + p % 4;
+    if (m >= M) continue;
+#pragma unroll
+    for (int q = 0; q < TMS; ++q) {
+      const int x = n0 + (q / 4) * GS + 4 * tx + q % 4;
+      if (x >= Nn) continue;
+      T* o = pc + m * rs + x * cs;
+      if (nsplit > 1) *o = acc[p][q];
+      else *o = (beta ? *o : T(0)) + alpha * acc[p][q];
+    }
+  }
+}
+
+// C = (beta ? C : 0) + alpha sum_s work[n][s], s in order
+template <typename T>
+__global__ void h9_reduce_kernel(const T* work, int nsplit, int M, int Nn,
+                                 T* c, long c_n, long c_rs, long c_cs,
+                                 T alpha, int beta) {
+  const long n = blockIdx.y;
+  const long MN = (long)M * Nn;
+  const long e = (long)blockIdx.x * blockDim.x + threadIdx.x;
+  if (e >= MN) return;
+  const int m = (int)(e / Nn), x = (int)(e - (long)m * Nn);
+  const T* w = work + n * nsplit * MN + e;
+  T s = T(0);
+  for (int i = 0; i < nsplit; ++i) s += w[i * MN];
+  T* o = c + n * c_n + m * c_rs + x * c_cs;
+  *o = (beta ? *o : T(0)) + alpha * s;
+}
+
+// x D = c for one row x of H9_BW values in registers (c on entry, zero
+// past kb), D in shared memory (the identity past kb) with its inverted
+// diagonal in dinv: from the last column, x_l, then its share subtracted
+// from the columns before (independent updates; D's row read 4 values a
+// load, the same address in every thread)
+template <typename T>
+__device__ __forceinline__ void h9_solve_row(T (&x)[H9_BW],
+                                             const T (*D)[H9_LD],
+                                             const T* dinv) {
+#pragma unroll
+  for (int l = H9_BW - 1; l >= 0; --l) {
+    x[l] *= dinv[l];
+#pragma unroll
+    for (int m4 = 0; m4 < l; m4 += 4) {
+      T d[4];
+      ld4(&D[l][m4], d);
+#pragma unroll
+      for (int q = 0; q < 4; ++q)
+        if (m4 + q < l) x[m4 + q] -= x[l] * d[q];
+    }
+  }
+}
+
+// the block's L (the identity past kb) and its inverted diagonal
+template <typename T>
+__device__ __forceinline__ void h9_load_diag(T (*D)[H9_LD], T* dinv,
+                                             const T* A, int F1, int j,
+                                             int kb) {
+  // unrolled, so that a thread's loads are in flight together: these
+  // kernels run few threads a front, and at the top levels few fronts
+#pragma unroll 16
+  for (int q = threadIdx.x; q < H9_BW * H9_BW; q += blockDim.x) {
+    const int l = q / H9_BW, m = q - (q / H9_BW) * H9_BW;
+    T v = (l < kb && m <= l) ? A[(long)(j + l) * F1 + j + m] : T(0);
+    if (l == m && l >= kb) v = T(1);
+    D[l][m] = v;
+    if (l == m) dinv[l] = T(1) / v;
+  }
+}
+
+// Xbar = Cbar D^{-1} for the rows i in [j + kb, F1) of the block's panel:
+// G[j + l][i], l < kb, is row i's Cbar.  One thread a row, held in
+// registers (``h9_solve_row``).
+template <typename T>
+__global__ void __launch_bounds__(H9_TRSM_ROWS)
+h9_trsm_kernel(T* __restrict__ front, int F1, int j, int kb) {
+  __shared__ __align__(16) T D[H9_BW][H9_LD];
+  __shared__ T dinv[H9_BW];
+  T* A = front + (long)blockIdx.y * F1 * F1;
+  h9_load_diag(D, dinv, A, F1, j, kb);
+  __syncthreads();
+  const int i = j + kb + blockIdx.x * H9_TRSM_ROWS + threadIdx.x;
+  if (i >= F1) return;
+  T x[H9_BW];
+#pragma unroll
+  for (int l = 0; l < H9_BW; ++l)
+    x[l] = l < kb ? A[(long)(j + l) * F1 + i] : T(0);
+  h9_solve_row(x, D, dinv);
+#pragma unroll
+  for (int l = 0; l < H9_BW; ++l)
+    if (l < kb) A[(long)(j + l) * F1 + i] = x[l];
+}
+
+// The reverse of the block's diagonal factor D = chol(E) in closed form,
+// one block of H9_BW threads a front, D and the cotangent in shared
+// memory: Dbar = Abar's block (G's upper triangle of the block, transposed,
+// and gdiag) minus Xbar^T C (sbuf, transposed); Phi = tril(D^T Dbar) with
+// its diagonal halved, S = Phi + Phi^T, and Esym = D^{-T} S D^{-1} (the JAX
+// package's `_chol_vjp`, whose 1/4 (dA + dA^T) is 1/2 Esym).  Thread t holds a
+// column, then a row, in registers: M's column t (D^T Dbar, a sum over
+// rows with independent accumulators), then D^T X = S for X's column t
+// and Esym D = X for Esym's row t, both ``h9_solve_row``.  Writes Esym,
+// symmetrized, into both triangles of the block (D is dead).
+template <typename T>
+__global__ void __launch_bounds__(H9_BW)
+h9_diag_kernel(T* __restrict__ front, int F1, int P, int j, int kb,
+               const T* __restrict__ gdiag, const T* __restrict__ sbuf) {
+  __shared__ __align__(16) T D[H9_BW][H9_LD];
+  __shared__ T dinv[H9_BW];
+  extern __shared__ __align__(16) unsigned char h9_smem[];
+  T (*E)[H9_BW + 1] = reinterpret_cast<T (*)[H9_BW + 1]>(h9_smem);
+  const long n = blockIdx.x;
+  T* A = front + n * F1 * F1;
+  const T* Sn = sbuf + n * H9_BW * H9_BW;
+  const T* gd = gdiag + n * P + j;
+  const int t = threadIdx.x;
+  h9_load_diag(D, dinv, A, F1, j, kb);
+  // Dbar, zero past kb: G's rows j + m read along l (coalesced), sbuf
+  // holding S transposed
+#pragma unroll 16
+  for (int q = t; q < H9_BW * H9_BW; q += H9_BW) {
+    const int m = q / H9_BW, l = q - (q / H9_BW) * H9_BW;
+    T e = T(0);
+    if (l < kb && m < l) e = A[(long)(j + m) * F1 + j + l] - Sn[m * H9_BW + l];
+    else if (l < kb && m == l) e = gd[l] - Sn[l * H9_BW + l];
+    E[l][m] = e;
+  }
+  __syncthreads();
+  T v[H9_BW];
+#pragma unroll
+  for (int a = 0; a < H9_BW; ++a) v[a] = T(0);
+#pragma unroll
+  for (int i = 0; i < H9_BW; ++i) {     // M[a][t] = sum_{i >= a} D[i][a] Dbar[i][t]
+    const T e = E[i][t];
+#pragma unroll
+    for (int a4 = 0; a4 <= i; a4 += 4) {
+      T d[4];
+      ld4(&D[i][a4], d);
+#pragma unroll
+      for (int q = 0; q < 4; ++q)
+        if (a4 + q <= i) v[a4 + q] += d[q] * e;
+    }
+  }
+  __syncthreads();
+#pragma unroll
+  for (int a = 0; a < H9_BW; ++a) E[a][t] = v[a];
+  __syncthreads();
+#pragma unroll
+  for (int a = 0; a < H9_BW; ++a)       // S's column t: M[a][t], a >= t; M[t][a]
+    v[a] = a >= t ? E[a][t] : E[t][a];
+  h9_solve_row(v, D, dinv);             // X's column t
+  __syncthreads();
+#pragma unroll
+  for (int a = 0; a < H9_BW; ++a) E[a][t] = v[a];
+  __syncthreads();
+#pragma unroll
+  for (int a = 0; a < H9_BW; ++a) v[a] = E[t][a];
+  h9_solve_row(v, D, dinv);             // Esym's row t
+#pragma unroll
+  for (int a = 0; a < H9_BW; ++a) E[t][a] = v[a];     // the thread's own row
+  __syncthreads();
+#pragma unroll 16
+  for (int q = t; q < kb * kb; q += H9_BW) {
+    const int l = q / kb, m = q - (q / kb) * kb;
+    A[(long)(j + l) * F1 + j + m] = T(0.5) * (E[l][m] + E[m][l]);
+  }
+}
+
+// A finished block's cotangent into the lower triangle, where L's columns
+// [j, j + kb) are dead: rows i >= j + kb get 1/2 G[j + l][i] (a 64 x 64
+// tile a block, transposed through shared memory), the diagonal block
+// 1/2 Esym (block 0).
+template <typename T>
+__global__ void __launch_bounds__(H9_THREADS)
+h9_final_kernel(T* __restrict__ front, int F1, int j, int kb) {
+  __shared__ T tile[H9_BW][H9_BW + 1];
+  T* A = front + (long)blockIdx.y * F1 * F1;
+  if (blockIdx.x == 0) {
+    for (int t = threadIdx.x; t < kb * kb; t += H9_THREADS) {
+      const int l = t / kb, m = t - (t / kb) * kb;
+      if (m <= l) A[(long)(j + l) * F1 + j + m] *= T(0.5);
+    }
+    return;
+  }
+  const int i0 = j + kb + (blockIdx.x - 1) * H9_BW;
+  for (int t = threadIdx.x; t < H9_BW * H9_BW; t += H9_THREADS) {
+    const int l = t / H9_BW, ii = t - (t / H9_BW) * H9_BW;
+    if (l < kb && i0 + ii < F1) tile[l][ii] = A[(long)(j + l) * F1 + i0 + ii];
+  }
+  __syncthreads();
+  for (int t = threadIdx.x; t < H9_BW * H9_BW; t += H9_THREADS) {
+    const int ii = t / H9_BW, l = t - (t / H9_BW) * H9_BW;
+    if (l < kb && i0 + ii < F1)
+      A[(long)(i0 + ii) * F1 + j + l] = T(0.5) * tile[l][ii];
+  }
+}
+
 template <typename T>
 __global__ void diag_rhs_bwd_kernel(const T* __restrict__ dfront, int F1,
                                     T* __restrict__ ddv, T* __restrict__ drv) {
@@ -705,26 +1095,61 @@ __global__ void diag_rhs_bwd_kernel(const T* __restrict__ dfront, int F1,
   const int f = blockIdx.x * blockDim.x + threadIdx.x;
   if (f >= F1) return;
   const T* D = dfront + n * (long)F1 * F1;
+  const T r = D[(long)(F1 - 1) * F1 + f];    // row F1-1: the lower triangle
   ddv[n * F1 + f] = D[(long)f * F1 + f];
-  drv[n * F1 + f] = D[(long)(F1 - 1) * F1 + f] + D[(long)f * F1 + F1 - 1];
+  drv[n * F1 + f] = r + r;
 }
 
 template <typename T>
-__global__ void extend_add_bwd_kernel(const T* __restrict__ dfront, int F1,
-                                      const int* __restrict__ inv, int Bc1,
-                                      T* __restrict__ out, long s_node,
-                                      long s_child, long s_row) {
+__global__ void __launch_bounds__(EA_THREADS)
+extend_add_bwd_kernel(const T* __restrict__ dfront, int F1,
+                      const int* __restrict__ inv, int Bc1,
+                      T* __restrict__ out, long s_node, long s_child,
+                      int s_row) {
+  constexpr int NW = EA_THREADS / 32;
+  constexpr int RW = EA_TILE / NW;                 // rows a warp
+  constexpr int CL = EA_TILE / 32;                 // columns a lane
+  __shared__ int ra[EA_TILE];                      // the tile's rows' parents
   const long n = blockIdx.y;
   const int s = blockIdx.z;
-  const long t = (long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (t >= (long)Bc1 * Bc1) return;
-  const int a = (int)(t / Bc1);
-  const int b = (int)(t - (long)a * Bc1);
+  int ti, tj;
+  tile_of((int)blockIdx.x, (Bc1 + EA_TILE - 1) / EA_TILE, ti, tj);
+  const int a0 = ti * EA_TILE, b0 = tj * EA_TILE;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const int* iv = inv + (n * 2 + s) * Bc1;
-  const int i = iv[a], j = iv[b];
-  if (i < 0 || j < 0) return;
-  out[n * s_node + s * s_child + a * s_row + b] +=
-      dfront[n * (long)F1 * F1 + (long)i * F1 + j];
+  const T* D = dfront + n * F1 * F1;
+  T* o = out + n * s_node + s * s_child;
+  for (int t = threadIdx.x; t < EA_TILE; t += EA_THREADS)
+    ra[t] = a0 + t < Bc1 ? iv[a0 + t] : -1;
+  int pc[CL];
+#pragma unroll
+  for (int c = 0; c < CL; ++c) {
+    const int b = b0 + lane + 32 * c;
+    pc[c] = b < Bc1 ? iv[b] : -1;
+  }
+  __syncthreads();
+  // a >= b gives inv[a] >= inv[b] (inv is monotone): dfront's lower triangle
+  T v[RW][CL], w[RW][CL];
+#pragma unroll
+  for (int r = 0; r < RW; ++r) {
+    const int a = a0 + warp + NW * r, pa = ra[warp + NW * r];
+#pragma unroll
+    for (int c = 0; c < CL; ++c) {
+      const int b = b0 + lane + 32 * c;
+      const bool in = b <= a && pa >= 0 && pc[c] >= 0;
+      v[r][c] = in ? D[(long)pa * F1 + pc[c]] : T(0);
+      w[r][c] = in ? o[a * s_row + b] : T(0);
+    }
+  }
+#pragma unroll
+  for (int r = 0; r < RW; ++r) {
+    const int a = a0 + warp + NW * r, pa = ra[warp + NW * r];
+#pragma unroll
+    for (int c = 0; c < CL; ++c) {
+      const int b = b0 + lane + 32 * c;
+      if (b <= a && pa >= 0 && pc[c] >= 0) o[a * s_row + b] = w[r][c] + v[r][c];
+    }
+  }
 }
 
 template <typename T>
@@ -746,11 +1171,13 @@ __global__ void leaf_assemble_bwd_kernel(const T* __restrict__ dfront,
   const int pk = (k < K) ? pe[k] : F1 - 1;
   T acc = T(0);
   if (pk >= 0) {
-    const T* row = dfront + n * (long)F1 * F1 + (long)pk * F1;
-    acc = row[F1 - 1] * rhs_elem[e];
+    // dfront's lower triangle: [pk][pl] for pl <= pk, else its mirror
+    const T* Dn = dfront + n * (long)F1 * F1;
+    const T* row = Dn + (long)pk * F1;
+    acc = Dn[(long)(F1 - 1) * F1 + pk] * rhs_elem[e];
     for (int l = 0; l < K; ++l) {
       const int pl = pe[l];
-      if (pl >= 0) acc += row[pl] * ue[l];
+      if (pl >= 0) acc += (pl <= pk ? row[pl] : Dn[(long)pl * F1 + pk]) * ue[l];
     }
   }
   if (k < K) du[e * K + k] = T(2) * acc;
@@ -770,11 +1197,10 @@ int launch_extend_add_bwd(const T* dfront, int N, int F1, const int* inv,
                           int Bc1, T* out, long s_node, long s_child,
                           long s_row, T* ddv, T* drv, cudaStream_t st) {
   if (N == 0) return 0;
-  const long BB = (long)Bc1 * Bc1;
-  if (BB > 0) {
-    dim3 grid((unsigned)((BB + 255) / 256), (unsigned)N, 2);
-    extend_add_bwd_kernel<T><<<grid, 256, 0, st>>>(dfront, F1, inv, Bc1, out,
-                                                   s_node, s_child, s_row);
+  if (Bc1 > 0) {
+    dim3 grid((unsigned)tile_count(Bc1, 0, Bc1, EA_TILE), (unsigned)N, 2);
+    extend_add_bwd_kernel<T><<<grid, EA_THREADS, 0, st>>>(
+        dfront, F1, inv, Bc1, out, s_node, s_child, (int)s_row);
     const int rc = (int)cudaGetLastError();
     if (rc) return rc;
   }
@@ -906,6 +1332,106 @@ int launch_front_factor(T* front, int N, int F1, int P, cudaStream_t st) {
   return launch_syrk_update(front, N, F1, P, F1, 0, P, st);
 }
 
+// an H9 product (see h9_gemm_kernel) over N fronts of F1 x F1; offsets
+// within a front.  Splits k while the tiles alone leave the card short of
+// GM_FILL blocks, each split at least GM_SPLIT_DEPTH deep, and the partial
+// sums fit ``work``.
+template <typename T, bool SYM>
+int h9_gemm(T* front, int N, long FF, long a_off, long a_sx, long a_sk,
+            long b_off, long b_sx, long b_sk, T* c, long c_n, long c_rs,
+            long c_cs, int M, int Nn, int K, T alpha, int beta, T* work,
+            long work_len, cudaStream_t st) {
+  if (M <= 0 || Nn <= 0 || K <= 0) return 0;
+  // 128-tiles on wide outputs, unless their rows would waste more than
+  // 64-tiles' on a short one
+  const bool big = Nn >= 192 &&
+                   (M >= 192 || (M + 127) / 128 * 128 == (M + 63) / 64 * 64);
+  const int BT = big ? 128 : 64, KS = big ? 8 : 16;
+  const int tiles_n = (Nn + BT - 1) / BT;
+  const long tiles = (long)((M + BT - 1) / BT) * tiles_n;
+  int nsplit = 1;
+  while (tiles * N * nsplit < GM_FILL && K / (2 * nsplit) >= GM_SPLIT_DEPTH &&
+         2L * nsplit * N * M * Nn <= work_len)
+    nsplit *= 2;
+  int kchunk = (K + nsplit - 1) / nsplit;
+  kchunk = (kchunk + KS - 1) / KS * KS;
+  nsplit = (K + kchunk - 1) / kchunk;
+  dim3 grid((unsigned)tiles, (unsigned)nsplit, (unsigned)N);
+  const T* a = front + a_off;
+  const T* b = front + b_off;
+  if (big)
+    h9_gemm_kernel<T, 128, SYM><<<grid, GM_THREADS, 0, st>>>(
+        a, FF, a_sx, a_sk, b, FF, b_sx, b_sk, c, c_n, c_rs, c_cs, M, Nn, K,
+        kchunk, tiles_n, alpha, beta, work);
+  else
+    h9_gemm_kernel<T, 64, SYM><<<grid, GM_THREADS, 0, st>>>(
+        a, FF, a_sx, a_sk, b, FF, b_sx, b_sk, c, c_n, c_rs, c_cs, M, Nn, K,
+        kchunk, tiles_n, alpha, beta, work);
+  int rc = (int)cudaGetLastError();
+  if (rc || nsplit == 1) return rc;
+  dim3 gr((unsigned)(((long)M * Nn + 255) / 256), (unsigned)N);
+  h9_reduce_kernel<T><<<gr, 256, 0, st>>>(work, nsplit, M, Nn, c, c_n, c_rs,
+                                          c_cs, alpha, beta);
+  return (int)cudaGetLastError();
+}
+
+template <typename T>
+int launch_front_factor_bwd(T* front, int N, int F1, int P, const T* gl,
+                            const T* gq, T* gdiag, T* sbuf, T* work,
+                            long work_len, cudaStream_t st) {
+  if (N == 0 || P == 0) return 0;
+  const long FF = (long)F1 * F1;
+  const int B1 = F1 - P;
+  int rc;
+  h9_seed_kernel<T><<<dim3((P + H9_THREADS / 32 - 1) / (H9_THREADS / 32), N),
+                      H9_THREADS, 0, st>>>(front, F1, P, gl, gq, gdiag);
+  if ((rc = (int)cudaGetLastError())) return rc;
+  // the Schur product's reverse: G[:P, P:] -= 2 L_bp^T dupd_s (rows c of
+  // G; L_bp^T's (c, b) at [P + b][c], dupd_s's lower triangle at [P:, P:])
+  rc = h9_gemm<T, true>(front, N, FF, (long)P * F1, 1, F1, (long)P * F1 + P,
+                        1, F1, front + P, FF, F1, 1, P, B1, B1, T(-2), 1,
+                        work, work_len, st);
+  if (rc) return rc;
+  const size_t smem = H9_BW * (H9_BW + 1) * sizeof(T);
+  if ((rc = (int)cudaFuncSetAttribute(
+           h9_diag_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+           (int)smem)))
+    return rc;
+  for (int j = (P - 1) / H9_BW * H9_BW; j >= 0; j -= H9_BW) {
+    const int k = P - j < H9_BW ? P : j + H9_BW, kb = k - j;
+    dim3 gt((F1 - k + H9_TRSM_ROWS - 1) / H9_TRSM_ROWS, N);
+    h9_trsm_kernel<T><<<gt, H9_TRSM_ROWS, 0, st>>>(front, F1, j, kb);
+    if ((rc = (int)cudaGetLastError())) return rc;
+    // S = Xbar^T C: (l, i) of G[j + l][k + i], (i, l') of L[k + i][j + l'];
+    // S[l][l'] at sbuf[l' H9_BW + l], for the diagonal kernel's loads
+    rc = h9_gemm<T, false>(front, N, FF, (long)j * F1 + k, F1, 1,
+                           (long)k * F1 + j, 1, F1, sbuf,
+                           (long)H9_BW * H9_BW, 1, H9_BW, kb, kb, F1 - k,
+                           T(1), 0, work, work_len, st);
+    if (rc) return rc;
+    h9_diag_kernel<T><<<N, H9_BW, smem, st>>>(front, F1, P, j, kb, gdiag,
+                                              sbuf);
+    if ((rc = (int)cudaGetLastError())) return rc;
+    if (j > 0) {
+      // Rbar: G[c][j + l] -= sum_i L[j + i][c] M[j + l][j + i], M = the
+      // block's rows [j, k) from column j: Esym, then Xbar^T
+      rc = h9_gemm<T, false>(front, N, FF, (long)j * F1, 1, F1,
+                             (long)j * F1 + j, F1, 1, front + j, FF, F1, 1,
+                             j, kb, F1 - j, T(-1), 1, work, work_len, st);
+      if (rc) return rc;
+      // Bbar: G[c][k + i] -= sum_l L[j + l][c] G[j + l][k + i]
+      rc = h9_gemm<T, false>(front, N, FF, (long)j * F1, 1, F1,
+                             (long)j * F1 + k, 1, F1, front + k, FF, F1, 1,
+                             j, F1 - k, kb, T(-1), 1, work, work_len, st);
+      if (rc) return rc;
+    }
+    dim3 gf(1 + (F1 - k + H9_BW - 1) / H9_BW, N);
+    h9_final_kernel<T><<<gf, H9_THREADS, 0, st>>>(front, F1, j, kb);
+    if ((rc = (int)cudaGetLastError())) return rc;
+  }
+  return 0;
+}
+
 }  // namespace
 
 extern "C" {
@@ -948,6 +1474,23 @@ int gpv_front_factor_f32(float* front, int N, int F1, int P, void* stream) {
 
 int gpv_front_factor_f64(double* front, int N, int F1, int P, void* stream) {
   return launch_front_factor<double>(front, N, F1, P, (cudaStream_t)stream);
+}
+
+int gpv_front_factor_bwd_f32(float* front, int N, int F1, int P,
+                              const float* gl, const float* gq, float* gdiag,
+                              float* sbuf, float* work, long long work_len,
+                              void* stream) {
+  return launch_front_factor_bwd<float>(front, N, F1, P, gl, gq, gdiag, sbuf,
+                                        work, work_len, (cudaStream_t)stream);
+}
+
+int gpv_front_factor_bwd_f64(double* front, int N, int F1, int P,
+                              const double* gl, const double* gq,
+                              double* gdiag, double* sbuf, double* work,
+                              long long work_len, void* stream) {
+  return launch_front_factor_bwd<double>(front, N, F1, P, gl, gq, gdiag,
+                                         sbuf, work, work_len,
+                                         (cudaStream_t)stream);
 }
 
 int gpv_extend_add_bwd_f32(const float* dfront, int N, int F1, const int* inv,

@@ -1,5 +1,5 @@
 """Multifrontal level kernels on augmented fronts: H2, H3 and H4, and
-their backward: H6, H7 and the pullback of H4.
+their backward: H9 (the pullback of H4), H6 and H7.
 
 Every front is (F1, F1) with F1 = P + B + 1: P pivots, B border vertices and
 one augmented row/column F1-1 that carries the right-hand side, so the
@@ -17,21 +17,25 @@ block carries the RHS update to the parent.
   ``_factor_kernel`` (:180, ``factor_fronts``) and the factor and Schur
   halves of the leaf and level kernels: a blocked right-looking factor
   whose last launch forms each front's Schur block once.
+* H9 ``front_factor_bwd`` is the pullback of H4, in place on the factored
+  front: the custom VJPs of K7 (``pallas_frontal.py:241-270``) and of the
+  factor halves of K4/K5 (``pallas_level.py:422-484``, ``:645-687``), which
+  the JAX package computes in XLA (``_factor_pullback``, ``_chol_vjp``).
+  Its plain version runs ``front_factor_vjp``, that formula ported formula
+  for formula (triangular solves and batched products).
 * H6 ``extend_add_bwd`` replaces K8b, ``linalg/pallas_eadd.py``
   ``_bwd_kernel`` (:117, ``_eadd_bwd_impl``), and the ``dch`` halves of the
   level and assembly VJPs (``pallas_level.py:436-486, 831-883``).
 * H7 ``leaf_assemble_bwd`` replaces the ``du`` half of the leaf VJP
   (``pallas_level.py:655-685``).
-* ``front_factor_vjp`` is the pullback of H4, ported formula for formula
-  from ``_factor_pullback`` and ``_chol_vjp`` (``pallas_level.py:526-563``;
-  ``pallas_frontal.py:219-271``).  The JAX package computes it in XLA,
-  outside any Pallas kernel, so here it stays in torch (triangular solves
-  and batched products).
 
-Symmetry convention of the backward: every front cotangent is carried as a
-full symmetric matrix, as the JAX package's ``_factor_pullback`` returns
-1/2 (dfront + dfront^T); a child's Schur-block cotangent is that matrix's
-gather, symmetric too.
+Symmetry convention of the backward: a front's cotangent is the symmetric
+matrix the JAX package's ``_factor_pullback`` returns, 1/2 (X + X^T).  H9
+leaves it in the lower triangle of the front (the upper triangle is
+unspecified, as after H4), and H6 and H7 read it through that lower
+triangle; ``front_factor_vjp`` returns it full.  A child's Schur-block
+cotangent is its gather, symmetric too, of which H6 writes the lower
+triangle.
 
 The CUDA kernels are in ``csrc/frontal.cu`` (their source note says what
 bounds each one and how the design answers it).  Each ``*_plain`` function
@@ -49,9 +53,11 @@ from ..csrc import cuda
 
 __all__ = ["leaf_assemble", "leaf_assemble_plain", "extend_add",
            "extend_add_plain", "front_factor", "front_factor_plain",
-           "front_factor_vjp", "extend_add_bwd", "extend_add_bwd_plain",
+           "front_factor_vjp", "front_factor_bwd", "front_factor_bwd_plain",
+           "extend_add_bwd", "extend_add_bwd_plain",
            "leaf_assemble_bwd", "leaf_assemble_bwd_plain",
            "H2_EDGE_SHAPES", "H3_EDGE_SHAPES", "H4_EDGE_SHAPES",
+           "H9_EDGE_SHAPES",
            "h2_edge_inputs", "h3_edge_inputs"]
 
 _MAX_GRID_Y = 65535
@@ -72,6 +78,16 @@ H4_EDGE_SHAPES = (
     (2, 300, 255), (2, 300, 256), (2, 300, 257), (2, 129, 50),
     (2, 257, 100), (1, 150, 60), (1, 600, 599), (3, 700, 300),
     (2, 900, 130))
+
+# H9's column block (``H9_BW`` in csrc/frontal.cu)
+H9_BW = 64
+
+# (N, F1, P) shapes at the edges of H9's schedule (column blocks of 64,
+# product tiles of 64 and 128, split depths past 512): H4's, and P = 0 and
+# 1, P = F1 - 1 one past a block, and one front whose deep products split.
+H9_EDGE_SHAPES = H4_EDGE_SHAPES + (
+    (2, 30, 0), (2, 20, 1), (2, 100, 63), (1, 66, 65), (1, 1500, 200),
+    (2, 700, 64))
 
 # (N, F1, EL, K) shapes at the edges of H2's banded accumulation (rows cut
 # into bands of about 64 KB of the lower triangle, elements in chunks of at
@@ -349,7 +365,7 @@ def front_factor(front, P):
 front_factor.launches = 0
 
 
-# ------------------------------------------------- H4's pullback ----
+# ------------------------------------------------------- H9 ----
 
 def _chol_vjp(L, Lbar):
     """dA for L = chol(A) given Lbar, from the saved factor alone
@@ -370,8 +386,10 @@ def front_factor_vjp(front, P, dL_pp, dL_bp, dupd=None):
 
     Reads L_pp through ``tril`` (the kernel leaves the upper triangle of
     [:P, :P] uninitialized) and L_bp_aug from [P:, :P]; never reads [P:, P:].
-    The JAX package's ``_factor_pullback`` formula for formula.
+    The JAX package's ``_factor_pullback`` formula for formula; H9's plain
+    version (``launches`` counts its calls: none on the card's path).
     """
+    _vjp_count.launches += 1
     N, F1, _ = front.shape
     L = torch.tril(front[:, :P, :P])
     Lbp = front[:, P:, :P]
@@ -389,11 +407,105 @@ def front_factor_vjp(front, P, dL_pp, dL_bp, dupd=None):
     return dfront
 
 
+front_factor_vjp.launches = 0
+_vjp_count = front_factor_vjp   # counts in the function, even if rebound
+
+
+def _sym_lower(x):
+    """The symmetric matrices whose lower triangles are x's."""
+    return torch.tril(x) + torch.tril(x, -1).mT
+
+
+# bytes of one (chunk, F1, F1) temporary of the plain pullback: it holds
+# about eight at once, so ~4 GB a chunk
+_BWD_CHUNK_BYTES = 1 << 29
+
+
+def front_factor_bwd_plain(front, P, g_logdet, g_quad):
+    """``front_factor_bwd`` by ``front_factor_vjp``, in node chunks: seeds
+    dL_pp = diag(2 g_logdet / L_ii) and dL_bp[B1-1] = 2 g_quad y, the Schur
+    cotangent from the lower triangle of [P:, P:]; writes the full
+    symmetric cotangent into ``front``."""
+    N, F1, _ = front.shape
+    if P == 0:
+        return front
+    B1 = F1 - P
+    step = max(1, _BWD_CHUNK_BYTES // (F1 * F1 * front.element_size()))
+    for n0 in range(0, N, step):
+        fr = front[n0:n0 + step]
+        dL_pp = torch.diag_embed(
+            2.0 * g_logdet / torch.diagonal(fr[:, :P, :P], 0, 1, 2))
+        dL_bp = fr.new_zeros(fr.shape[0], B1, P)
+        dL_bp[:, B1 - 1] = 2.0 * g_quad * fr[:, F1 - 1, :P]
+        fr.copy_(front_factor_vjp(fr, P, dL_pp, dL_bp,
+                                  _sym_lower(fr[:, P:, P:])))
+    return front
+
+
+# elements of H9's buffer of partial sums (its split products)
+_H9_WORK = 1 << 22
+
+
+def _factor_bwd_launch(front, P, g_logdet, g_quad):
+    N, F1, _ = front.shape
+    dt = front.dtype
+    gl = g_logdet.to(dt).reshape(1).contiguous()
+    gq = g_quad.to(dt).reshape(1).contiguous()
+    # the cotangent of L's diagonal (L keeps its place until a column block
+    # is done), a block's Xbar^T C, and the split products' partial sums
+    gdiag = front.new_empty(N, P)
+    sbuf = front.new_empty(N, H9_BW, H9_BW)
+    work = front.new_empty(_H9_WORK)
+    rc = cuda.entry("gpv_front_factor_bwd", dt)(
+        front.data_ptr(), N, F1, P, gl.data_ptr(), gq.data_ptr(),
+        gdiag.data_ptr(), sbuf.data_ptr(), work.data_ptr(), work.numel(),
+        cuda.stream(front.device))
+    cuda.check(rc, "front_factor_bwd")
+    front_factor_bwd.launches += 1
+    return front
+
+
+def front_factor_bwd(front, P, g_logdet, g_quad):
+    """H9: the pullback of ``front_factor`` on fronts (N, F1, F1) it
+    factored, in place; returns ``front``.
+
+    In: L_pp and L_bp_aug in the lower triangle of [:, :P] as H4 left them,
+    and in the lower triangle of [P:, P:] the symmetric cotangent of the
+    Schur block upd_aug; g_logdet and g_quad (0-dim tensors), the
+    cotangents of logdet = 2 sum log diag L_pp and quad = |y|^2 (y = row
+    F1-1 of L_bp_aug).  Out: the lower triangle holds the fronts'
+    cotangent, the symmetric 1/2 (X + X^T) of ``front_factor_vjp``.  Reads
+    lower triangles only; the upper triangle is unspecified afterwards
+    (the kernel keeps its accumulating cotangent there, the plain version
+    fills both).  The factor is gone afterwards."""
+    N, F1, F1b = front.shape
+    if F1 != F1b or not 0 <= P < F1:
+        raise ValueError("front_factor_bwd: fronts must be (N, F1, F1), "
+                         "P < F1")
+    g_logdet = torch.as_tensor(g_logdet, dtype=front.dtype,
+                               device=front.device)
+    g_quad = torch.as_tensor(g_quad, dtype=front.dtype, device=front.device)
+    if not _dispatch("front_factor_bwd", front, front):
+        return front_factor_bwd_plain(front, P, g_logdet, g_quad)
+    if not front.is_contiguous():
+        raise ValueError("front_factor_bwd: fronts must be contiguous")
+    if N > _MAX_GRID_Y:
+        raise ValueError(f"front_factor_bwd: {N} fronts exceed the grid "
+                         "bound")
+    if P == 0:
+        return front
+    return _factor_bwd_launch(front, P, g_logdet, g_quad)
+
+
+front_factor_bwd.launches = 0
+
+
 # ---------------------------------------------------------- H6 ----
 
 def _diag_rhs_bwd(dfront):
     """(d dvec, d rvec): dvec[f] enters front[f, f], rvec[f] enters
-    front[F1-1, f] and front[f, F1-1] (``_diag_rhs_cotangent``)."""
+    front[F1-1, f] and front[f, F1-1] (``_diag_rhs_cotangent``); the
+    kernels read 2 dfront[F1-1, f], the same for a symmetric dfront."""
     F1 = dfront.shape[-1]
     return (torch.diagonal(dfront, 0, 1, 2).clone(),
             dfront[:, F1 - 1, :] + dfront[:, :, F1 - 1])
@@ -443,10 +555,13 @@ def extend_add_bwd(dfront, ext, out):
     """Backward of ``extend_add``: ``out += G_s^T dfront G_s`` per child,
     in place, and returns (d dvec, d rvec), each (N, F1).
 
-    dfront: (N, F1, F1) full symmetric parent cotangents; ext: (N, 2, F1)
-    int32 as in ``extend_add``; out: (N, 2, Bc1, Bc1) children's Schur-block
+    dfront: (N, F1, F1) symmetric parent cotangents, read through their
+    lower triangles (as H9 leaves them); ext: (N, 2, F1) int32 as in
+    ``extend_add``; out: (N, 2, Bc1, Bc1) children's Schur-block
     cotangents, any strides with a unit last stride, so a view into the
-    child fronts' [P_c:, P_c:] blocks works.  Both triangles are written.
+    child fronts' [P_c:, P_c:] blocks works.  The kernel adds into the
+    lower triangles only (ext is monotone, so lower maps to lower); the
+    plain version into both.
     """
     N, F1, _ = dfront.shape
     Bc1 = out.shape[-1]
@@ -455,13 +570,16 @@ def extend_add_bwd(dfront, ext, out):
             or out.shape != (N, 2, Bc1, Bc1) or dfront.shape != (N, F1, F1):
         raise ValueError("extend_add_bwd: shape/dtype mismatch")
     if not _dispatch("extend_add_bwd", dfront, dfront, out):
-        dupd, ddv, drv = extend_add_bwd_plain(dfront, ext, Bc1)
+        dupd, ddv, drv = extend_add_bwd_plain(_sym_lower(dfront), ext, Bc1)
         out += dupd
         return ddv, drv
     if out.stride(-1) != 1:
         raise ValueError("extend_add_bwd: out needs a unit last stride")
     if N > _MAX_GRID_Y:
         raise ValueError(f"extend_add_bwd: {N} fronts exceed the grid bound")
+    if F1 * F1 > _MAX_INT32 or (Bc1 - 1) * out.stride(2) + Bc1 > _MAX_INT32:
+        raise ValueError("extend_add_bwd: a front or a child block exceeds "
+                         "32-bit indexing")
     return _eadd_bwd_launch(dfront.contiguous(), _inverse_ext(ext, Bc1), out)
 
 
@@ -504,8 +622,9 @@ def _leaf_bwd_launch(dfront, u, epos, rhs_elem):
 
 
 def leaf_assemble_bwd(dfront, u, epos, rhs_elem):
-    """Backward of ``leaf_assemble`` for a full symmetric cotangent dfront
-    (N, F1, F1): (du (N, EL, K), d rhs_elem (N, EL), d dvec, d rvec), with
+    """Backward of ``leaf_assemble`` for a symmetric cotangent dfront
+    (N, F1, F1), read through its lower triangle (as H9 leaves it):
+    (du (N, EL, K), d rhs_elem (N, EL), d dvec, d rvec), with
 
         du[e, k]  = 2 (sum_l dfront[p_k, p_l] u[e, l] + dfront[p_k, F1-1] re[e])
         dre[e]    = 2 (sum_k dfront[F1-1, p_k] u[e, k] + dfront[F1-1, F1-1] re[e])
@@ -519,7 +638,7 @@ def leaf_assemble_bwd(dfront, u, epos, rhs_elem):
             or rhs_elem.shape != (N, EL) or dfront.shape != (N, F1, F1):
         raise ValueError("leaf_assemble_bwd: shape/dtype mismatch")
     if not _dispatch("leaf_assemble_bwd", dfront, dfront, u, rhs_elem):
-        return leaf_assemble_bwd_plain(dfront, u, epos, rhs_elem)
+        return leaf_assemble_bwd_plain(_sym_lower(dfront), u, epos, rhs_elem)
     if N > _MAX_GRID_Y:
         raise ValueError(f"leaf_assemble_bwd: {N} fronts exceed the grid "
                          "bound")

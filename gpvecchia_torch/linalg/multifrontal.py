@@ -15,13 +15,15 @@ CUDA).  Without gradients a level's front is released as soon as its parent
 is assembled.  With gradients every level's factored front is kept, and the
 backward walks the levels root -> leaf:
 
-    seed the front's cotangent from (logdet, quad) -> front_factor_vjp
+    H9 front_factor_bwd: the front's cotangent, in place of its factor
     -> H6 extend_add_bwd into the children's Schur blocks (internal)
        or H7 leaf_assemble_bwd (leaf) -> scatter d dvec, d rhs_vert
 
-writing each child's Schur-block cotangent into that child's saved front
-(its [P:, P:] block, which the backward does not otherwise read), so no
-separate child cotangent is allocated.
+writing each child's Schur-block cotangent into the lower triangle of that
+child's saved front's [P:, P:] block, where H9 reads it, so no front-sized
+cotangent is allocated.  On the card the backward consumes the saved
+fronts (a second backward over the graph raises); on the CPU it works on
+a copy of each level.
 
 For the posterior, ``mf_factor_keep`` runs the same forward without
 gradients and returns the factored fronts as an ``MFFactor``; on it
@@ -51,8 +53,8 @@ import torch
 
 from torch.autograd.function import once_differentiable
 
-from .frontal import (extend_add, extend_add_bwd, front_factor,
-                      front_factor_vjp, leaf_assemble, leaf_assemble_bwd)
+from .frontal import (_sym_lower, extend_add, extend_add_bwd, front_factor,
+                      front_factor_bwd, leaf_assemble, leaf_assemble_bwd)
 
 __all__ = ["MFFactor", "mf_device_arrays", "mf_factor", "mf_factor_part",
            "mf_factor_keep", "mf_forward", "mf_backward", "mf_solve",
@@ -149,11 +151,6 @@ def _piv_vec(piv_ids, vec, fill, F1):
     return torch.cat([v, vec.new_zeros(N, F1 - P)], dim=1)
 
 
-# bytes of one front-sized (chunk, F1, F1) temporary of the backward: a
-# level's pullback holds about eight at once, so ~4 GB per chunk
-_BWD_CHUNK_BYTES = 1 << 29
-
-
 def _forward(levels, first, dvec, rhs_elem, rhs_vert, keep):
     """(logdet, quad, fronts, schur) over ``levels``: fronts[d] is level
     d's factored front when ``keep``, else None (released once its parent
@@ -212,61 +209,56 @@ def _scatter(acc, ids, vals):
 
 
 def _backward(levels, fronts, u_elem, rhs_elem, n_vert, g_logdet, g_quad,
-              g_schur=None, d_first=None):
+              g_schur=None, d_first=None, consume=True):
     """Cotangents of ``_forward``'s inputs: (du_elem, ddvec, drhs_elem,
     drhs_vert), the first and third None when the deepest level is not the
     leaf; then the cotangent of the blocks below it is written into
-    ``d_first`` (zeros, the blocks' shape).  ``g_schur`` is the cotangent
-    of the first level's Schur blocks (None: nothing reads them)."""
+    ``d_first`` (zeros, the blocks' shape) as full symmetric blocks.
+    ``g_schur`` is the cotangent of the first level's Schur blocks (None:
+    nothing reads them).  ``consume``: each level's cotangent overwrites
+    its saved front (else a copy of the level's fronts)."""
     leaf = "elem_pt" in levels[-1]
     du_elem = torch.zeros_like(u_elem) if leaf else None
     drhs_elem = torch.zeros_like(rhs_elem) if leaf else None
-    dt = fronts[0].dtype
     ddvec = fronts[0].new_zeros(n_vert)
     drhs_vert = fronts[0].new_zeros(n_vert)
-    g_logdet = g_logdet.to(dt)
-    g_quad = g_quad.to(dt)
     D = len(levels) - 1
     for d, lv in enumerate(levels):
-        front = fronts[d]
-        P, F1 = lv["P"], lv["F1"]
-        N, B1 = front.shape[0], F1 - P
-        # the first level's Schur block feeds the exchange (or nothing, at
-        # the root); below it, the parent's H6 wrote this level's
-        # Schur-block cotangent into [P:, P:]
-        dupd = front[:, P:, P:] if d > 0 else g_schur
+        front = fronts[d] if consume else fronts[d].clone()
+        P = lv["P"]
+        if d == 0:
+            # the first level's Schur block feeds the exchange (or nothing,
+            # at the root); below it, the parent's H6 wrote this level's
+            # Schur-block cotangent into [P:, P:]
+            blk = front[:, P:, P:]
+            if g_schur is None:
+                blk.zero_()
+            else:
+                blk.copy_(0.5 * (g_schur + g_schur.mT))
+        front_factor_bwd(front, P, g_logdet, g_quad)
         if d < D:
             Pc = levels[d + 1]["P"]
             child_blk = fronts[d + 1][:, Pc:, Pc:]
             child_blk.zero_()
-            child_blk = child_blk.unflatten(0, (-1, 2))
+            ddv, drv = extend_add_bwd(front, lv["ext_aug"],
+                                      child_blk.unflatten(0, (-1, 2)))
         elif not leaf:
-            child_blk = d_first.unflatten(0, (-1, 2))
-        step = max(1, _BWD_CHUNK_BYTES // (F1 * F1 * front.element_size()))
-        for n0 in range(0, N, step):
-            sl = slice(n0, n0 + step)
-            fr = front[sl]
-            L_diag = torch.diagonal(fr[:, :P, :P], 0, 1, 2)
-            dL_pp = torch.diag_embed(2.0 * g_logdet / L_diag)
-            dL_bp = fr.new_zeros(fr.shape[0], B1, P)
-            dL_bp[:, B1 - 1] = 2.0 * g_quad * fr[:, F1 - 1, :P]
-            dfront = front_factor_vjp(fr, P, dL_pp, dL_bp,
-                                      None if dupd is None else dupd[sl])
-            del dL_pp, dL_bp
-            if d < D or not leaf:
-                ddv, drv = extend_add_bwd(dfront, lv["ext_aug"][sl],
-                                          child_blk[sl])
-            else:
-                ept = lv["elem_pt"][sl]
-                u, re = _leaf_values(ept, u_elem, rhs_elem)
-                du, dre, ddv, drv = leaf_assemble_bwd(
-                    dfront, u, lv["elem_pos"][sl], re)
-                _scatter(du_elem, ept, du)
-                _scatter(drhs_elem, ept, dre)
-                del u, re, du, dre
-            del dfront
-            _scatter(ddvec, lv["piv_ids"][sl], ddv[:, :P])
-            _scatter(drhs_vert, lv["piv_ids"][sl], drv[:, :P])
+            ddv, drv = extend_add_bwd(front, lv["ext_aug"],
+                                      d_first.unflatten(0, (-1, 2)))
+            # H6 adds into lower triangles (H3 read those of the exchanged
+            # blocks): the full symmetric blocks
+            d_first.copy_(_sym_lower(d_first))
+        else:
+            ept = lv["elem_pt"]
+            u, re = _leaf_values(ept, u_elem, rhs_elem)
+            du, dre, ddv, drv = leaf_assemble_bwd(front, u, lv["elem_pos"],
+                                                  re)
+            _scatter(du_elem, ept, du)
+            _scatter(drhs_elem, ept, dre)
+            del u, re, du, dre
+        del front
+        _scatter(ddvec, lv["piv_ids"], ddv[:, :P])
+        _scatter(drhs_vert, lv["piv_ids"], drv[:, :P])
     return du_elem, ddvec, drhs_elem, drhs_vert
 
 
@@ -291,11 +283,17 @@ class _MFFactor(torch.autograd.Function):
             leaf_in = (first, rhs_elem) if "elem_pt" in levels[-1] else ()
             ctx.n_leaf_in = len(leaf_in)
             ctx.save_for_backward(*leaf_in, *fronts)
+            ctx.consumed = False
         return logdet, quad, schur
 
     @staticmethod
     @once_differentiable
     def backward(ctx, g_logdet, g_quad, g_schur):
+        if ctx.consumed:
+            raise RuntimeError(
+                "mf_factor: the first backward on the card overwrote the "
+                "saved fronts with their cotangents; a second backward over "
+                "the same graph (retain_graph=True) is not supported there")
         saved = ctx.saved_tensors
         u_elem, rhs_elem = saved[:ctx.n_leaf_in] or (None, None)
         fronts = [f.data for f in saved[ctx.n_leaf_in:]]
@@ -303,13 +301,16 @@ class _MFFactor(torch.autograd.Function):
         if u_elem is None:
             d_first = fronts[0].new_zeros(ctx.first_shape)
         # The backward writes each child's Schur-block cotangent into that
-        # child's saved front ([P:, P:], which nothing else of the backward
-        # reads), so it works on aliases outside autograd's version
-        # tracking; a second backward (retain_graph) rewrites the same
-        # blocks the same way.
+        # child's saved front ([P:, P:]), and on the card H9 overwrites
+        # each front with its cotangent, so it works on aliases outside
+        # autograd's version tracking.  On the CPU each level's fronts are
+        # copied first and the child blocks rewritten the same way, so a
+        # second backward (retain_graph, as gradcheck runs) gives the same.
+        consume = fronts[0].device.type == "cuda"
+        ctx.consumed = consume
         du, ddvec, dre, drv = _backward(
             ctx.levels, fronts, u_elem, rhs_elem, ctx.n_vert, g_logdet,
-            g_quad, g_schur if g_schur.numel() else None, d_first)
+            g_quad, g_schur if g_schur.numel() else None, d_first, consume)
         return (None, du if u_elem is not None else d_first,
                 ddvec.to(ctx.dtypes[0]), dre, drv.to(ctx.dtypes[1]))
 

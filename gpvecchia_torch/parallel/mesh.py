@@ -361,20 +361,24 @@ def _worker(rank, world_size, fn, args, init, backend, device, timeout,
     dist.destroy_process_group()
 
 
-def run_local(fn, world_size, *args, backend="gloo", device="cpu",
+def run_local(fn, world_size, *args, backend="gloo", device="cuda",
               timeout=600.0):
     """Run ``fn(rank, world_size, *args)`` on ``world_size`` local
     processes (start method 'spawn'), each with the default process group
     initialized (``backend``; a ``file://`` store in a fresh temporary
-    directory, so concurrent runs never meet) and ``device`` ("cpu", or
-    "cuda": rank r on cuda:(r mod the card count)).  Returns the ranks'
-    results in rank order.  ``fn`` and its results must pickle; ``fn``
-    lives in a module the ranks can import.
+    directory, so concurrent runs never meet) and ``device`` ("cuda", the
+    default: rank r on cuda:(r mod the card count), raising when no card
+    is visible, as every entry point of the port; or "cpu").  Returns the
+    ranks' results in rank order.  ``fn`` and its results must pickle;
+    ``fn`` lives in a module the ranks can import.
 
     If a rank raises, exits without a result or is still running after
     ``timeout`` seconds (also the process group's timeout), every rank is
     stopped and this raises, naming the rank: never a partial result."""
     import multiprocessing as mp
+
+    from ..inference.likelihood import resolve_device
+    device = resolve_device(device).type
     ctx = mp.get_context("spawn")
     tmp = tempfile.mkdtemp(prefix="gpvecchia_run_local_")
     init = "file://" + os.path.join(tmp, "store")

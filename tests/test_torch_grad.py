@@ -26,6 +26,7 @@ import torch
 
 import jax
 import jax.numpy as jnp
+import jax.scipy.linalg
 
 import gpvecchia_tpu as GJ
 import gpvecchia_tpu.kernels.pallas_crout as pc
@@ -158,7 +159,7 @@ def test_grad_runs_the_functions_backward(monkeypatch):
         monkeypatch.setattr(mod, name, wrapped)
 
     spy(MS, "matern_solve_e0_bwd_plain")
-    spy(MF, "front_factor_vjp")
+    spy(FR, "front_factor_vjp")
     spy(FR, "extend_add_bwd_plain")
     spy(FR, "leaf_assemble_bwd_plain")
     locs, z = _data(n=600, seed=4)
@@ -557,6 +558,357 @@ def test_front_factor_vjp_matches_factor_fronts(interpret, F, P):
                                _t(dL_bp, torch.float32))
     _close(_np(ours)[:, :, :P], _sym(np.asarray(ref))[:, :, :P], 1e-3)
     assert torch.all(ours[:, P:, P:] == 0.0)
+
+
+# ------------------------------------------- (e2) H9 front_factor_bwd ----
+
+H9_REL = 1e-12
+
+# (N, F1, P): P = 1, P below and not a multiple of 32, one past 32, B1 = 1
+# (P = F1 - 1, the root's shape), P one past H9's column block of 64
+H9_SHAPES = [(2, 12, 1), (2, 20, 7), (2, 70, 33), (2, 40, 39), (1, 80, 79),
+             (3, 72, 65)]
+
+
+def _h9_case(N, F1, P, seed):
+    """float64 SPD fronts, Schur cotangents and seeds (g_logdet, g_quad)."""
+    rng = np.random.default_rng(seed)
+    A = rng.normal(size=(N, F1, F1)) / np.sqrt(F1)
+    front = A @ np.swapaxes(A, 1, 2) + np.eye(F1)
+    dupd = _sym(rng.normal(size=(N, F1 - P, F1 - P)))
+    return front, dupd, 0.7, -1.3
+
+
+def _exact_factor(front, P):
+    """(L_pp, L_bp, upd) of fronts by XLA's float64 Cholesky."""
+    L_pp = jnp.linalg.cholesky(front[:, :P, :P])
+    L_bp = jnp.swapaxes(jax.scipy.linalg.solve_triangular(
+        L_pp, jnp.swapaxes(front[:, P:, :P], 1, 2), lower=True), 1, 2)
+    return L_pp, L_bp, front[:, P:, P:] - L_bp @ jnp.swapaxes(L_bp, 1, 2)
+
+
+@pytest.fixture
+def exact_forward(monkeypatch):
+    """The Pallas forwards of K7 and K4/K5 replaced by XLA's float64
+    factor of the same fronts: their VJPs (the JAX package's closed-form
+    pullbacks, unchanged) then get exact residuals.  The interpret-mode
+    kernels' float64 factor is off by ~1e-7 relative, which would hide the
+    1e-12 this comparison holds the pullback to."""
+    def factor_impl(front, P):
+        return _exact_factor(front, P)[:2]
+
+    def level_impl(ch, starts, rel, diag2, P, B1, Bc1, F1, T):
+        ext = PL._ext_from_plan(starts, rel, T, F1).at[:, :, F1 - 1].set(
+            Bc1 - 1)
+        N = ch.shape[0]
+        ar = jnp.arange(N)[:, None, None]
+        front = jnp.zeros((N, F1, F1), ch.dtype)
+        for s in (0, 1):
+            g = ext[:, s]
+            ok = (g >= 0)[:, :, None] & (g >= 0)[:, None, :]
+            gc = jnp.clip(g, 0)
+            front += jnp.where(ok, ch[:, s][ar, gc[:, :, None],
+                                              gc[:, None, :]], 0.0)
+        return _pad_upd(_exact_factor(_diag_rhs(front, diag2, F1), P), B1)
+
+    def leaf_impl(u, epos, diag2, P, B1, F1):
+        lane = jnp.arange(F1)
+        ua = jnp.sum(jnp.where(lane[None, None, None, :]
+                               == epos[:, :, :, None], u[..., None], 0.0),
+                     axis=1)                                 # (N, ELp, F1)
+        front = jnp.einsum("nef,neg->nfg", ua, ua)
+        return _pad_upd(_exact_factor(_diag_rhs(front, diag2, F1), P), B1)
+
+    monkeypatch.setattr(pf, "_factor_impl", factor_impl)
+    monkeypatch.setattr(PL, "_level_impl", level_impl)
+    monkeypatch.setattr(PL, "_leaf_impl", leaf_impl)
+    for f in (pf._make_factor, PL._make_fused, PL._make_leaf):
+        f.cache_clear()
+    yield
+    for f in (pf._make_factor, PL._make_fused, PL._make_leaf):
+        f.cache_clear()
+
+
+def _diag_rhs(front, diag2, F1):
+    front = front + jax.vmap(jnp.diag)(diag2[:, 0, :F1])
+    front = front.at[:, F1 - 1, :].add(diag2[:, 1, :F1])
+    return front.at[:, :, F1 - 1].add(diag2[:, 1, :F1])
+
+
+def _pad_upd(parts, B1):
+    L_pp, L_bp, upd = parts
+    B1p = PL._ru(B1, 8)
+    return L_pp, L_bp, jnp.pad(upd, ((0, 0), (0, B1p - B1), (0, 0)))
+
+
+def _h9_jax_ref(front, dupd, gl, gq, P):
+    """The symmetric front cotangent from ``jax.vjp`` of ``factor_fronts``
+    (K7's custom VJP) with the Schur product, seeded as the likelihood
+    seeds it: dL_pp = diag(2 g_logdet / L_ii), dL_bp[B1-1] = 2 g_quad y."""
+    def f(fr):
+        L_pp, L_bp = pf.factor_fronts(fr, P)
+        return L_pp, L_bp, fr[:, P:, P:] - L_bp @ jnp.swapaxes(L_bp, 1, 2)
+
+    (L_pp, L_bp, _), vjp = jax.vjp(f, jnp.asarray(front))
+    dL_pp, dL_bp = _h9_seeds(L_pp, L_bp, gl, gq)
+    (ref,) = vjp((jnp.asarray(dL_pp), jnp.asarray(dL_bp), jnp.asarray(dupd)))
+    return _sym(np.asarray(ref))
+
+
+def _h9_seeds(L_pp, L_bp, gl, gq):
+    """(dL_pp, dL_bp) of logdet = 2 sum log diag L_pp and quad = |y|^2."""
+    L_pp, L_bp = np.asarray(L_pp), np.asarray(L_bp)
+    N, P, _ = L_pp.shape
+    dL_pp = np.zeros_like(L_pp)
+    dL_pp[:, np.arange(P), np.arange(P)] = 2.0 * gl / np.diagonal(
+        L_pp, axis1=1, axis2=2)
+    dL_bp = np.zeros_like(L_bp)
+    dL_bp[:, -1] = 2.0 * gq * L_bp[:, -1]
+    return dL_pp, dL_bp
+
+
+def _factored_with_dupd(front, dupd, P, upper=None):
+    """``front_factor_plain`` of the fronts with the Schur cotangent's lower
+    triangle in [P:, P:], as H6 leaves it; ``upper`` fills the strict upper
+    triangle (the kernels' unspecified values)."""
+    fr = FR.front_factor_plain(_t(front), P)
+    fr[:, P:, P:] = torch.tril(_t(dupd))
+    if upper is not None:
+        F1 = fr.shape[-1]
+        fr = fr.masked_fill(torch.ones(F1, F1, dtype=torch.bool).triu(1),
+                            upper)
+    return fr
+
+
+def _close_rel(got, want, rel):
+    np.testing.assert_allclose(got, want, rtol=0,
+                               atol=rel * np.abs(want).max())
+
+
+@pytest.mark.parametrize("N,F1,P", H9_SHAPES)
+def test_h9_plain_matches_factor_fronts_vjp(exact_forward, N, F1, P):
+    """``front_factor_bwd`` (its plain version here) leaves in the lower
+    triangle the JAX package's symmetric cotangent, to 1e-12 in float64;
+    NaN in the strict upper triangle of its input does not reach it."""
+    front, dupd, gl, gq = _h9_case(N, F1, P, seed=F1 + P)
+    ref = _h9_jax_ref(front, dupd, gl, gq, P)
+    got = FR.front_factor_bwd(_factored_with_dupd(front, dupd, P,
+                                                  upper=torch.nan),
+                              P, _t(gl), _t(gq))
+    got = torch.tril(got).numpy()
+    assert np.isfinite(got).all()
+    _close_rel(got, np.tril(ref), H9_REL)
+
+
+def test_h9_with_p_zero_leaves_the_schur_cotangent():
+    """P = 0 (no pivot): the front's cotangent is its Schur block's."""
+    front, dupd, gl, gq = _h9_case(2, 9, 0, seed=1)
+    fr = _factored_with_dupd(front, dupd, 0)
+    want = fr.clone()
+    FR.front_factor_bwd(fr, 0, _t(gl), _t(gq))
+    torch.testing.assert_close(fr, want, rtol=0, atol=0)
+
+
+def _h9_emulate(front, P, gl, gq, W):
+    """H9's schedule in torch, step for step as csrc/frontal.cu runs it on
+    one front batch, in place: the accumulating cotangent Abar of the
+    first P columns lives transposed in the upper triangle (G[c, r] =
+    Abar[r, c], r > c; its diagonal in ``gd``), column blocks of W from the
+    last; the final cotangent of a finished block goes to the lower
+    triangle, where L is no longer read."""
+    N, F1, _ = front.shape
+    A = front
+    gd = 2.0 * gl / torch.diagonal(A, 0, 1, 2)[:, :P]            # seed
+    for c in range(P):
+        A[:, c, c + 1:] = 0.0
+    A[:, :P, F1 - 1] = 2.0 * gq * A[:, F1 - 1, :P]
+    A[:, :P, P:] += -2.0 * A[:, P:, :P].mT @ FR._sym_lower(A[:, P:, P:])
+    for j in reversed(range(0, P, W)):
+        k = min(P, j + W)
+        D = torch.tril(A[:, j:k, j:k])
+        # Xbar = Cbar D^{-1}, one row of Cbar a thread
+        A[:, j:k, k:] = torch.linalg.solve_triangular(
+            D, A[:, j:k, k:].mT, upper=False, left=False).mT
+        S = A[:, j:k, k:] @ A[:, k:, j:k]                      # Xbar^T C
+        Dbar = (torch.tril(A[:, j:k, j:k].mT, -1)
+                + torch.diag_embed(gd[:, j:k]) - torch.tril(S))
+        A[:, j:k, j:k] = _diag_block_rev(D, Dbar)
+        if j > 0:
+            A[:, :j, j:k] -= (A[:, j:k, j:] @ A[:, j:, :j]).mT     # Rbar
+            A[:, :j, k:] -= A[:, j:k, :j].mT @ A[:, j:k, k:]       # Bbar
+        A[:, k:, j:k] = 0.5 * A[:, j:k, k:].mT                 # finalize
+        A[:, j:k, j:k] = 0.5 * A[:, j:k, j:k]
+    return A
+
+
+def _diag_block_rev(D, Dbar):
+    """The diagonal block's kernel: Esym = Ebar + Ebar^T of D = chol(E)
+    given Dbar (both lower) in closed form, D^{-T} (Phi + Phi^T) D^{-1}
+    with Phi = tril(D^T Dbar), its diagonal halved."""
+    M = torch.tril(D.mT @ Dbar)
+    Phi = M - 0.5 * torch.diag_embed(torch.diagonal(M, 0, 1, 2))
+    X = torch.linalg.solve_triangular(D.mT, Phi + Phi.mT, upper=True)
+    E = torch.linalg.solve_triangular(D, X, upper=False, left=False)
+    return 0.5 * (E + E.mT)
+
+
+@pytest.mark.parametrize("W", [8, FR.H9_BW])
+@pytest.mark.parametrize("N,F1,P", H9_SHAPES)
+def test_h9_block_order_matches_factor_fronts_vjp(exact_forward, N, F1, P,
+                                                  W):
+    """The kernel's blocked reverse sweep (Murray's left-looking blocked
+    algorithm, in place), emulated in torch, equals the JAX package's
+    cotangent to 1e-12 in float64, reading lower triangles only (the
+    input's strict upper triangle is NaN)."""
+    front, dupd, gl, gq = _h9_case(N, F1, P, seed=F1 + P)
+    ref = _h9_jax_ref(front, dupd, gl, gq, P)
+    got = _h9_emulate(_factored_with_dupd(front, dupd, P, upper=torch.nan),
+                      P, gl, gq, W)
+    got = torch.tril(got).numpy()
+    assert np.isfinite(got).all()
+    _close_rel(got, np.tril(ref), H9_REL)
+
+
+def test_h9_h6_match_fused_level_vjp(exact_forward):
+    """A level's backward as ``_backward`` runs it: H9 in place, then H6
+    from the front's lower triangle (its strict upper triangle NaN) into
+    the children's blocks, vs ``jax.vjp`` of ``fused_level`` in float64
+    with the likelihood's seeds; to 1e-12 of scale."""
+    L = _level_inputs(seed=5, N=2, P=13, B=8, Bc=14)
+    P, B1, Bc1, F1 = L["P"], L["B1"], L["Bc1"], L["F1"]
+    N = L["ch"].shape[0]
+    f64 = np.float64
+    dupd = _sym(np.random.default_rng(8).normal(size=(N, B1, B1)))
+    gl, gq = 0.6, -0.9
+    B1p = PL._ru(B1, 8)
+    dupd_p = np.zeros((N, B1p, B1))
+    dupd_p[:, :B1] = dupd
+
+    def f(chp, diag2):
+        return PL.fused_level(chp, jnp.asarray(L["starts"]),
+                              jnp.asarray(L["rel"]), diag2, P, B1, Bc1, F1,
+                              L["T"])
+
+    (L_pp, L_bp, _), vjp = jax.vjp(f, jnp.asarray(L["chp"], f64),
+                                   jnp.asarray(L["diag2"], f64))
+    dL_pp, dL_bp = _h9_seeds(L_pp, L_bp, gl, gq)
+    dch_j, ddiag2_j = (np.asarray(a) for a in vjp(
+        (jnp.asarray(dL_pp), jnp.asarray(dL_bp), jnp.asarray(dupd_p))))
+    front = FR.extend_add_plain(_t(L["ch"]), _t(L["ext"]), _t(L["diag"]),
+                                _t(L["rhs"]))
+    assert front.dtype == torch.float64
+    FR.front_factor_plain(front, P)
+    front[:, P:, P:] = _t(dupd)
+    up = torch.ones(F1, F1, dtype=torch.bool).triu(1)
+    front = front.masked_fill(up, torch.nan)
+    FR.front_factor_bwd(front, P, _t(gl), _t(gq))
+    front = front.masked_fill(up, torch.nan)
+    out = torch.zeros(N, 2, Bc1, Bc1, dtype=torch.float64)
+    ddv, drv = FR.extend_add_bwd(front, _t(L["ext"]), out)
+    _close_rel(_sym(_np(out)), _sym(dch_j[:, :, :Bc1]), H9_REL)
+    _close_rel(_np(ddv), ddiag2_j[:, 0, :F1], H9_REL)
+    _close_rel(_np(drv), ddiag2_j[:, 1, :F1], H9_REL)
+
+
+def test_h9_h7_match_fused_leaf_vjp(exact_forward):
+    """The leaf's backward as ``_backward`` runs it: H9 in place, then H7
+    from the front's lower triangle (strict upper NaN), vs ``jax.vjp`` of
+    ``fused_leaf`` in float64 with the likelihood's seeds; 1e-12."""
+    rng = np.random.default_rng(3)
+    N, P, B, EL, K = 2, 10, 6, 13, 4
+    B1 = B + 1
+    F1 = P + B1
+    ELp = PL._ru(EL, 8)
+    u = np.zeros((N, ELp, K))
+    epos = np.full((N, ELp, K), -1, np.int32)
+    re = np.zeros((N, ELp))
+    for n in range(N):
+        for e in range(EL):
+            k = rng.integers(1, K + 1)
+            epos[n, e, :k] = np.sort(rng.choice(F1 - 1, size=k, replace=False))
+            u[n, e, :k] = rng.normal(size=k)
+            re[n, e] = rng.normal()
+    diag = rng.uniform(1.0, 2.0, size=(N, F1)) + 2.0 * F1
+    diag[:, F1 - 1] = 0.0
+    rhs = rng.normal(size=(N, F1))
+    rhs[:, F1 - 1] = 0.0
+    u_aug = np.concatenate([u, re[..., None]], axis=2)
+    epos_aug = np.concatenate(
+        [epos, np.where(np.arange(ELp) < EL, F1 - 1, -1)[None, :, None]
+         .repeat(N, 0).astype(np.int32)], axis=2)
+    F1p = PL._ru(F1, PL._TE)
+    diag2 = np.zeros((N, 8, F1p))
+    diag2[:, 0, :F1] = diag
+    diag2[:, 1, :F1] = rhs
+    dupd = _sym(rng.normal(size=(N, B1, B1)))
+    dupd_p = np.zeros((N, PL._ru(B1, 8), B1))
+    dupd_p[:, :B1] = dupd
+    gl, gq = -0.4, 1.1
+
+    def f(uT, d2):
+        return PL.fused_leaf(uT, jnp.asarray(np.swapaxes(epos_aug, 1, 2)), d2,
+                             P, B1, F1)
+
+    (L_pp, L_bp, _), vjp = jax.vjp(f, jnp.asarray(np.swapaxes(u_aug, 1, 2)),
+                                   jnp.asarray(diag2))
+    dL_pp, dL_bp = _h9_seeds(L_pp, L_bp, gl, gq)
+    du_j, dd2_j = (np.asarray(a) for a in vjp(
+        (jnp.asarray(dL_pp), jnp.asarray(dL_bp), jnp.asarray(dupd_p))))
+    du_j = np.swapaxes(du_j, 1, 2)
+    front = FR.leaf_assemble_plain(_t(u), _t(epos), _t(re), _t(diag),
+                                   _t(rhs))
+    FR.front_factor_plain(front, P)
+    front[:, P:, P:] = _t(dupd)
+    up = torch.ones(F1, F1, dtype=torch.bool).triu(1)
+    front = front.masked_fill(up, torch.nan)
+    FR.front_factor_bwd(front, P, _t(gl), _t(gq))
+    front = front.masked_fill(up, torch.nan)
+    du, dre, ddv, drv = FR.leaf_assemble_bwd(front, _t(u), _t(epos), _t(re))
+    real = (np.arange(ELp) < EL)[None, :]
+    _close_rel(_np(du), du_j[..., :K], H9_REL)
+    _close_rel(np.where(real, _np(dre), 0.0),
+               np.where(real, du_j[..., K], 0.0), H9_REL)
+    _close_rel(_np(ddv), dd2_j[:, 0, :F1], H9_REL)
+    _close_rel(_np(drv), dd2_j[:, 1, :F1], H9_REL)
+
+
+def test_h6_h7_read_lower_triangles():
+    """H6 and H7 (their CPU path) read the front cotangent through its
+    lower triangle: NaN above the diagonal changes nothing."""
+    L = _level_inputs(seed=3, N=3)
+    F1, Bc1 = L["F1"], L["Bc1"]
+    dfront = _t(_sym(np.random.default_rng(6).normal(size=(3, F1, F1))))
+    dirty = dfront.masked_fill(torch.ones(F1, F1, dtype=torch.bool).triu(1),
+                               torch.nan)
+    outs = [torch.zeros(3, 2, Bc1, Bc1, dtype=torch.float64) for _ in (0, 1)]
+    a = FR.extend_add_bwd(dfront, _t(L["ext"]), outs[0])
+    b = FR.extend_add_bwd(dirty, _t(L["ext"]), outs[1])
+    for x, y in zip((outs[0],) + a, (outs[1],) + b):
+        torch.testing.assert_close(x, y, rtol=0, atol=0)
+    rng = np.random.default_rng(2)
+    epos = np.stack([np.stack([np.sort(rng.choice(F1 - 1, 3, replace=False))
+                               for _ in range(5)]) for _ in range(3)])
+    u = rng.normal(size=epos.shape)
+    re = rng.normal(size=epos.shape[:2])
+    args = (_t(u), _t(epos.astype(np.int32)), _t(re))
+    for x, y in zip(FR.leaf_assemble_bwd(dfront, *args),
+                    FR.leaf_assemble_bwd(dirty, *args)):
+        torch.testing.assert_close(x, y, rtol=0, atol=0)
+
+
+def test_h9_edge_shapes_cover_the_schedule():
+    """The list the card check runs holds the edges of H9's schedule
+    (column blocks of 64, product tiles of 64 and 128): P = 0, 1, below
+    and one past a block, P = F1 - 1, and a front one past a tile."""
+    shapes = set(FR.H9_EDGE_SHAPES)
+    P_of = {P for _, _, P in shapes}
+    assert {0, 1} <= P_of
+    W = FR.H9_BW
+    assert {W - 1, W, W + 1, 2 * W - 1, 2 * W, 2 * W + 1} <= P_of
+    assert any(P == F1 - 1 for _, F1, P in shapes)
+    assert any(P == F1 - 1 and P > W for _, F1, P in shapes)
+    assert {129, 257} <= {F1 for _, F1, _ in shapes}
+    assert all(0 <= P < F1 for _, F1, P in shapes)
 
 
 # ------------------------------------------------- (f) gradcheck ----

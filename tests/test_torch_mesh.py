@@ -218,3 +218,11 @@ def test_run_local_names_the_failing_rank():
                        r"ArithmeticError: rank 1 gives up"):
         PM.run_local(MR.failing_rank, 2, backend="gloo", device="cpu",
                      timeout=SPAWN_S)
+
+
+def test_run_local_defaults_to_the_card(monkeypatch):
+    """Without ``device`` the ranks run on the card: with none visible,
+    run_local raises before it starts a rank, as every entry point does."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device is visible"):
+        PM.run_local(MR.failing_rank, 2, backend="gloo", timeout=SPAWN_S)
