@@ -52,8 +52,9 @@ Builds the host library and the CUDA kernels from this checkout, then
    strict upper triangle of its inputs, which must not change a bit of
    the output) and H9 at every level of this run's plan against its plain
    version (``front_factor_vjp``, the JAX package's formula in torch and
-   cuBLAS, and the store), with the sum over the levels of a value+grad;
-   the leaf's row is H9's in the ``kernels`` line;
+   cuBLAS, and the store), with its CUDA launches a level and the sum over
+   the levels of a value+grad; the leaf's row is H9's in the ``kernels``
+   line;
 2. slice phase: drives ``vecchia_likelihood`` / ``loglik_fn`` on an SGV spec
    of bench.py's data (rng(1988) uniform locations, z ~ N(0, 1), covparms
    (1.0, 0.2, 0.5), nugget 0.1).  At the default size the f64 value on the
@@ -178,7 +179,8 @@ closed-form and one smoothness-0.8 value+grad, one prediction mean and
 one selected inverse, and of the V path a zy and an IC0 value+grad, an
 obspred prediction mean and its exact prediction variances (at n > 1e5
 the zy value+grad and the default prediction spec's mean and exact
-variances).
+variances); a profile with H9 in it also splits H9's device time by part
+(``h9_parts``).
 
 ``--only-mesh`` is a tool for work on the sharded path: it builds, makes
 the spec of --n and --m and runs the mesh phase alone (its NUTS reference
@@ -524,13 +526,15 @@ def cost_h4(dt, N, F1, P):
 
 
 def cost_h9(dt, N, F1, P, bw=64):
-    """(bytes, operations) of H9 on N fronts, as its schedule runs: each
-    front's lower triangle (the factor and the Schur cotangent in, the
+    """(bytes, operations) of H9 on N fronts, the blocked reverse sweep's:
+    each front's lower triangle (the factor and the Schur cotangent in, the
     front's cotangent out) read once and written once; the Schur product's
     reverse 2 B1^2 P, and for each column block [j, k) of ``bw`` from the
     last the triangular solve of its F1 - k panel rows (kb^2 each), Xbar^T C
     (2 kb^2 (F1 - k)), the diagonal block's reverse (2/3 kb^3), and the
-    panel products Rbar (2 j kb (F1 - j)) and Bbar (2 j (F1 - k) kb)."""
+    panel products Rbar (2 j kb (F1 - j)) and Bbar (2 j (F1 - k) kb).  (The
+    kernel's solve, a product with the block's inverse, does twice the
+    solve's operations; the two-level order does the same products.)"""
     B1 = F1 - P
     ops = 2.0 * B1 * B1 * P
     for j in range(0, P, bw):
@@ -1402,6 +1406,10 @@ def leaf_phase(mf, seed, dev):
            FR.leaf_assemble_bwd,
            lambda d, *a: FR.leaf_assemble_bwd_plain(FR._sym_lower(d), *a),
            lambda r: r, cost_h7)
+    for row in h7.rows:
+        log(f"  leaf_assemble_bwd {label} {row['dtype']}: kernel "
+            f"{row['ms']:.3f} ms against its bound {row['bound_ms']:.3f} ms "
+            f"({row['bound_by']}): {row['bound_ms'] / row['ms']:.1%} of it")
     return {"leaf_assemble": h2, "leaf_assemble_bwd": h7}
 
 
@@ -1864,6 +1872,8 @@ def h9_level_phase(shapes, dev, seed):
                 _h9_call(FR.front_factor_bwd, P),
                 _h9_call(FR.front_factor_bwd_plain, P), torch.tril, cost,
                 mutates=True, main=lvl == len(shapes) - 1)
+        # the CUDA launches of its last call (the schedule, splits included)
+        launches = FR.front_factor_bwd.cuda_launches
         del fronts, fr
         torch.cuda.empty_cache()
         for row in chk.rows[-2:]:
@@ -1875,23 +1885,26 @@ def h9_level_phase(shapes, dev, seed):
                             bound_ms=row["bound_ms"] * scale,
                             bound_by=row["bound_by"],
                             tflops=cost(dt)[1] / (row["ms"] * 1e9),
+                            launches=launches,
                             max_abs_err=row["max_abs_err"],
                             held_err=row["held_err"], tol=row["tol"],
                             scale=row["scale"]))
     for name in ("float32", "float64"):
         rows = [r for r in out if r["dtype"] == name]
         log(f"  H9 by level, {name} (times scaled to the level's N): level "
-            f"N F1 P | kernel ms | plain ms | bound ms | TFLOP/s | held err "
-            f"(tol)")
+            f"N F1 P | kernel ms | plain ms | bound ms | TFLOP/s | CUDA "
+            f"launches a front batch | held err (tol)")
         for r in rows:
             log(f"    {r['level']:2d} {r['N']:5d} {r['F1']:5d} {r['P']:5d} | "
                 f"{r['ms']:8.3f} | {r['plain_ms']:8.3f} | "
                 f"{r['bound_ms']:7.3f} ({r['bound_by']}) | {r['tflops']:6.2f}"
-                f" | {r['held_err']:.2e} ({r['tol']:.2e})")
+                f" | {r['launches']:4d} | {r['held_err']:.2e} "
+                f"({r['tol']:.2e})")
         log(f"  H9 summed over the {len(rows)} levels, {name}: kernel "
             f"{sum(r['ms'] for r in rows):.3f} ms, plain "
             f"{sum(r['plain_ms'] for r in rows):.3f} ms, bound "
-            f"{sum(r['bound_ms'] for r in rows):.3f} ms")
+            f"{sum(r['bound_ms'] for r in rows):.3f} ms, "
+            f"{sum(r['launches'] for r in rows)} CUDA launches")
     return out, chk
 
 
@@ -1979,6 +1992,56 @@ def profile_call(what, once):
     log(f"profile: {what} wall {wall_us / 1e3:.2f} ms, device busy "
         f"{busy / 1e3:.2f} ms ({100 * busy / wall_us:.1f} %), "
         f"{len(spans)} device events")
+    parts = h9_parts(prof)
+    if parts:
+        log(f"profile: {what}: H9 by part (device ms, launches): " + "; ".join(
+            f"{k} {v[0]:.2f} ({v[1]})" for k, v in parts.items()))
+
+
+# H9's parts, in the order its launcher runs them
+H9_PARTS = ("Schur product's reverse", "panel products", "diagonal blocks",
+            "panel solves", "rest")
+
+
+def h9_parts(prof):
+    """H9's device time split by part, from its kernels in stream order:
+    the product just before each seed kernel is the Schur product's
+    reverse; the product just before each diagonal kernel (T = Cbar^T C)
+    belongs with it to the diagonal blocks, the one just after it is the
+    panel solve, every other product is a panel product; a split product's
+    reduction goes with its product; seed and final kernels are the rest.
+    {part: (ms, launches)}, empty without H9 kernels."""
+    ev = sorted((e for e in prof.events()
+                 if e.device_type == torch.autograd.DeviceType.CUDA
+                 and "h9_" in e.name), key=lambda e: e.time_range.start)
+    kind = ["seed" if "h9_seed" in e.name else "diag" if "h9_diag" in e.name
+            else "final" if "h9_final" in e.name else "reduce"
+            if "h9_reduce" in e.name else "gemm" for e in ev]
+    gemms = [i for i, k in enumerate(kind) if k == "gemm"]
+    part = [H9_PARTS[4]] * len(ev)
+    for i in gemms:
+        part[i] = H9_PARTS[1]
+    for i, k in enumerate(kind):
+        if k == "seed":
+            before = max((g for g in gemms if g < i), default=None)
+            if before is not None:
+                part[before] = H9_PARTS[0]
+        elif k == "diag":
+            before = max((g for g in gemms if g < i), default=None)
+            after = next((g for g in gemms if g > i), None)
+            if before is not None:
+                part[before] = H9_PARTS[2]
+            if after is not None:
+                part[after] = H9_PARTS[3]
+            part[i] = H9_PARTS[2]
+    for i, k in enumerate(kind):
+        if k == "reduce" and i > 0:
+            part[i] = part[i - 1]
+    out = {p: [0.0, 0] for p in H9_PARTS}
+    for e, p in zip(ev, part):
+        out[p][0] += (e.time_range.end - e.time_range.start) / 1e3
+        out[p][1] += 1
+    return {p: tuple(v) for p, v in out.items()} if ev else {}
 
 
 def grad_phase(spec, z, big, counters):

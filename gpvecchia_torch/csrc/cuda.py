@@ -50,7 +50,8 @@ _SIGNATURES = {
     "gpv_leaf_assemble": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _P, _P],
     "gpv_extend_add": [_P, _LL, _LL, _LL, _P, _P, _P, _I, _I, _P, _P],
     "gpv_front_factor": [_P, _I, _I, _I, _P],
-    "gpv_front_factor_bwd": [_P, _I, _I, _I, _P, _P, _P, _P, _P, _LL, _P],
+    "gpv_front_factor_bwd": [_P, _I, _I, _I, _P, _P, _P, _P, _P, _P, _LL,
+                             _P, _P],
     "gpv_extend_add_bwd": [_P, _I, _I, _P, _I, _P, _LL, _LL, _LL, _P, _P, _P],
     "gpv_leaf_assemble_bwd": [_P, _P, _P, _P, _I, _I, _I, _I, _P, _P, _P, _P,
                               _P],

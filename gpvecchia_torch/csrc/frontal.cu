@@ -129,23 +129,35 @@
 // Design: no front-sized temporary.  The accumulating cotangent Abar of
 // the first P columns lives transposed in the free upper triangle
 // (G[c][r] = Abar[r][c], r > c; its diagonal in an (N, P) buffer), where
-// its columns are rows, contiguous.  Column blocks of H9_BW from the last:
-// a triangular solve of the block's panel cotangent by its diagonal block
-// (one thread a row, the row in registers), Xbar^T C (a product of depth
-// F1 - k into a (N, 64, 64) buffer), the reverse of the 64 x 64 diagonal
-// block in closed form (one block a front: a product and two triangular
-// sweeps, a column or a row of 64 a thread in registers), then the two panel
-// products Rbar -= [Esym; Xbar]^T [R; B] and Bbar -= Xbar R.  Once a block
-// is done L's columns there are dead, and its cotangent goes to the lower
-// triangle.  Every product is one register-tiled SIMT kernel (64 x 64 or
-// 128 x 128 outputs a block, 4 x 4 or 8 x 8 a thread, k slabs staged
-// transposed in shared memory through registers while the slab before is
-// multiplied) that reads its operands through strides (the symmetric Schur
-// cotangent through its lower triangle) and splits a deep product over
+// its columns are rows, contiguous.  The sweep runs in two levels, as H4's
+// forward: outer panels of H9_OW columns from the last, and inside one,
+// column blocks of H9_BW from the last.  A block's steps: T = Cbar^T C (a
+// product of depth F1 - k into an (N, 64, 64) buffer, from the panel's
+// cotangent before its solve); the reverse of the 64 x 64 diagonal block
+// in closed form, one block of 256 threads a front, every step a product
+// of 64 x 64 blocks in shared memory but D's inverse (a column a thread),
+// with S = Xbar^T C = Dinv^T T; the panel solve Xbar^T = Dinv^T Cbar^T as a
+// product in place (depth 64); then the panel products Rbar -= [Esym;
+// Xbar]^T [R; B] and Bbar -= Xbar R on the panel's own cotangent rows only.
+// Once the panel's blocks are done its rows of G are final, and its
+// contributions to the rows left of it are two products of depth F1 - J
+// and OW (not one pair of depth-64 updates of all of G[:j, k:] a block),
+// reading the panel's rows of the upper triangle, diagonal blocks
+// included, as one symmetric operand.  Then the panel's cotangent goes to
+// the lower triangle, where L's columns [J, K) are dead.  Every product is
+// one register-tiled SIMT kernel (64 x 64 or 128 x 128 outputs a block, 4
+// x 4 or 8 x 8 a thread) whose k slabs come through a ring of four
+// shared-memory slabs by asynchronous copies (cp.async, one value each:
+// F1 is odd at most levels, so a front's rows start at any address, and
+// 16-byte copies or TMA would need aligned rows), one barrier a slab, as
+// H4's symmetric update.  It reads its operands through strides (the
+// symmetric ones through one triangle) and splits a deep product over
 // blocks when the output is too small to fill the card; the partial sums
 // are added in a fixed order, so there are no atomics and two runs give the
 // same bits.  What is left: the products run SIMT in float32 (no tensor
-// cores), and the root's 55 blocks are a chain of small launches.
+// cores; the Schur product's reverse at about 55 % of the SIMT peak on an
+// NVIDIA H100 80GB HBM3 at 700 W), the leaf's short products are bound by
+// latency, and the root's 55 blocks are a chain of about 400 launches.
 //
 // H6 extend_add_bwd replaces K8b, linalg/pallas_eadd.py `_bwd_kernel`
 // (pallas_call at :117, `_eadd_bwd_impl`), and the `dch` halves of the level
@@ -167,12 +179,21 @@
 // (pallas_level.py:655-685): for front = sum_e a_e a_e^T, d a_e =
 // 2 dfront a_e read at the element's K positions and at F1-1 (its RHS
 // weight).  The JAX package scatters each element into a dense (EL, F1) row
-// and multiplies by dfront (2e11 FLOP at n=1e6, m=40); here one thread per
-// (element, slot) walks the slot's front row at the element's K+1
-// positions, (K+1)^2 scattered reads per element (1.8e9 at n=1e6, m=40),
-// and is bound by those reads; it reads dfront's lower triangle (an entry
-// above the diagonal is read at its mirror), as H9 leaves it.
-
+// and multiplies by dfront (2e11 FLOP at n=1e6, m=40); here it is what it
+// computes, (K+1)^2 gathers an element (1.8e9 at n=1e6, m=40), the
+// transpose of H2: scattered 4-byte reads of device memory would each move
+// a 32-byte sector, so the front's lower triangle is read once, coalesced,
+// into shared memory (whole at the leaf in float32, 218 KB, else in row
+// bands), and the gathers go there, those above the diagonal to the
+// mirror.  Its least time is set by bytes (the lower triangles once, u in
+// and du out).  What is left (NVIDIA H100 80GB HBM3, 700 W; n=1e6, m=40):
+// 1.80 ms in float32 against 0.69: the gathers are random 4-byte reads of
+// shared memory (bank conflicts), and with one block a front, whose
+// triangle fills the SM's shared memory, a front's copy and its gathers do
+// not overlap; float64 takes two bands, which walk every pair twice.  The
+// diagonal adds' and the RHS vector's cotangents are read from the staged
+// rows.
+//
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
@@ -207,12 +228,26 @@ static_assert(EA_TILE % (EA_THREADS / 32) == 0 && EA_TILE % 32 == 0,
               "whole rows a warp and whole columns a lane");
 static_assert(OW % NB == 0, "whole inner panels per outer panel");
 constexpr int H9_BW = 64;        // H9: column block
+constexpr int H9_OW = 128;       // H9: outer panel (a multiple of H9_BW)
 constexpr int H9_LD = H9_BW + 4; // its rows in shared memory: 16-byte aligned
-constexpr int H9_TRSM_ROWS = 128;
 constexpr int H9_THREADS = 256;  // H9's seed and final kernels
+constexpr int H9_DIAG_THREADS = 256;  // H9's diagonal block: 16 x 16 threads
 constexpr int GM_THREADS = 256;  // H9's products: 16 x 16 threads
-constexpr int GM_SPLIT_DEPTH = 256;  // least depth a split of a product gets
-constexpr int GM_FILL = 2 * 132;     // blocks below which a product splits
+constexpr int GM_KS = 16;        // their slab depth
+constexpr int GM_STAGES = 4;     // their slabs in flight
+constexpr int GM_SPLIT_DEPTH = 128;  // least depth a split of a product gets
+constexpr int GM_FILL = 4 * 132;     // blocks below which a product splits:
+                                     // four 64-tiles an SM
+// blocks an SM should hold: the float32 128-tile at 128 registers a thread
+#define GM_BLOCKS(T, BT) \
+  ((BT) == 128 ? (sizeof(T) == 4 ? 2 : 1) : (sizeof(T) == 4 ? 4 : 2))
+static_assert(H9_OW % H9_BW == 0, "whole column blocks per outer panel");
+constexpr int LB_THREADS = 512;   // H7: a block a front
+constexpr int LB_WARPS = LB_THREADS / 32;
+constexpr int LB_CHUNK = 64;     // elements a chunk at most
+constexpr int LB_PF = 4;         // a thread's slots of a chunk at most
+constexpr int LB_G = 4;          // slots of one element a thread sums
+constexpr int LB_PAD = -(1 << 30);  // a pad slot's row start
 
 // Rows [band_start(b), band_start(b + 1)) form band b of R: the least r
 // with r (r + 1) / 2 * R >= b * F1 (F1 + 1) / 2, so the bands' lower-triangle
@@ -749,9 +784,10 @@ syrk_update_kernel(T* front, int F1, int r0, int c1, int k0, int k1) {
 
 // ---------------------------------------------------------------- H9 ----
 
-// seed: rows c < P of the upper triangle hold G = Abar^T; Abar starts as
-// Lbar: 0 but for 2 g_quad y in row F1-1 (G's column F1-1), and its
-// diagonal 2 g_logdet / L_cc in gdiag.  One warp a row.
+// seed, after the Schur product's reverse has written G[:P, P:]: rows c < P
+// of the upper triangle hold G = Abar^T; Abar starts as Lbar: 0 but for
+// 2 g_quad y in row F1-1 (G's column F1-1), and its diagonal 2 g_logdet /
+// L_cc in gdiag.  One warp a row.
 template <typename T>
 __global__ void h9_seed_kernel(T* __restrict__ front, int F1, int P,
                                const T* __restrict__ gl,
@@ -762,130 +798,171 @@ __global__ void h9_seed_kernel(T* __restrict__ front, int F1, int P,
   if (c >= P) return;
   T* A = front + (long)blockIdx.y * F1 * F1;
   T* row = A + (long)c * F1;
-  const T y2 = T(2) * gq[0] * A[(long)(F1 - 1) * F1 + c];
-  for (int col = c + 1 + lane; col < F1; col += 32)
-    row[col] = col == F1 - 1 ? y2 : T(0);
-  if (lane == 0) gdiag[(long)blockIdx.y * P + c] = T(2) * gl[0] / row[c];
-}
-
-// whether a slab's staging runs along k (else along x): where k is
-// contiguous in memory; a symmetric operand's slab wholly above its
-// diagonal (k < x) is read transposed
-template <int KS, bool SYM>
-__device__ __forceinline__ bool gm_kfast(long sx, long sk, int x0, int k0) {
-  if (SYM && k0 + KS <= x0) return sx == 1;
-  return sk == 1;
-}
-
-// a thread's R values of a BT x KS slab of an operand whose element (x, k)
-// is p[x sx + k sk] (SYM: p[k sx + x sk] where k < x, the mirror of the
-// lower triangle); 0 past xlim and klim
-template <typename T, int BT, int KS, bool SYM>
-__device__ __forceinline__ void gm_load(T* r, const T* p, long sx, long sk,
-                                        int x0, int xlim, int k0, int klim,
-                                        bool kfast) {
-  constexpr int R = BT * KS / GM_THREADS;
-#pragma unroll
-  for (int u = 0; u < R; ++u) {
-    const int e = threadIdx.x + GM_THREADS * u;
-    const int xx = kfast ? e / KS : e % BT, kk = kfast ? e % KS : e / BT;
-    const int x = x0 + xx, k = k0 + kk;
-    T v = T(0);
-    if (x < xlim && k < klim)
-      v = (SYM && k < x) ? p[x * sk + k * sx] : p[x * sx + k * sk];
-    r[u] = v;
+  for (int col = c + 1 + lane; col < P; col += 32) row[col] = T(0);
+  if (lane == 0) {
+    row[F1 - 1] += T(2) * gq[0] * A[(long)(F1 - 1) * F1 + c];
+    gdiag[(long)blockIdx.y * P + c] = T(2) * gl[0] / row[c];
   }
 }
 
-// ... stored transposed, [k][x]
-template <typename T, int BT, int KS, int S>
-__device__ __forceinline__ void gm_store(T (*sm)[S], const T* r, bool kfast) {
-  constexpr int R = BT * KS / GM_THREADS;
-#pragma unroll
-  for (int u = 0; u < R; ++u) {
-    const int e = threadIdx.x + GM_THREADS * u;
-    const int xx = kfast ? e / KS : e % BT, kk = kfast ? e % KS : e / BT;
-    sm[kk][xx] = r[u];
+// Thread t's u-th copy of a BT x GM_KS slab, e = t + GM_THREADS u, is the
+// element (xx, kk): along k a warp copies 4 rows x 8 consecutive k (their
+// shared-memory stores, rows padded by 4, fall into 32 distinct banks),
+// along x 32 consecutive x.  Either way u moves a thread by a fixed step:
+// 16 rows along k, GM_THREADS / BT values of k along x.
+template <int BT>
+__device__ __forceinline__ void gm_elem(int e, bool kfast, int& xx, int& kk) {
+  if (kfast) {
+    const int rest = e >> 5;
+    xx = 4 * (rest / (GM_KS / 8)) + ((e >> 3) & 3);
+    kk = 8 * (rest % (GM_KS / 8)) + (e & 7);
+  } else {
+    xx = e % BT;
+    kk = e / BT;
   }
+}
+
+// asynchronous copies of the elements (x, k) of a BT x GM_KS slab at
+// p[x ax + k ak] into sm[k][x] (rows of BT + 4), 0 past xlim and klim: all
+// of them (sel < 0), those with k >= x (sel 0) or those with k < x (sel 1).
+// Along k where k is contiguous (ak = 1), else along x, each thread from
+// one address and a fixed step.
+template <typename T, int BT>
+__device__ __forceinline__ void gm_part(unsigned base, const T* p, long ax,
+                                        long ak, int x0, int xlim, int k0,
+                                        int klim, int sel) {
+  constexpr int R = BT * GM_KS / GM_THREADS;
+  constexpr int XU = 4 * (GM_THREADS / 32) / (GM_KS / 8);  // x step along k
+  constexpr int KU = GM_THREADS / BT;                       // k step along x
+  static_assert(GM_THREADS % BT == 0 && R * GM_THREADS == BT * GM_KS,
+                "slab shape");
+  int xx, kk;
+  gm_elem<BT>(threadIdx.x, ak == 1, xx, kk);
+  const T* src = p + (x0 + xx) * ax + (k0 + kk) * ak;
+  const unsigned dst = base + (unsigned)((kk * (BT + 4) + xx) * sizeof(T));
+  const int x = x0 + xx, k = k0 + kk;
+  if (ak == 1) {
+#pragma unroll
+    for (int u = 0; u < R; ++u)
+      if (sel < 0 || (k < x + u * XU) == (sel == 1))
+        cp_async_or_zero(dst + (unsigned)(u * XU * sizeof(T)),
+                         src + u * XU * ax, k < klim && x + u * XU < xlim);
+  } else {
+#pragma unroll
+    for (int u = 0; u < R; ++u)
+      if (sel < 0 || (k + u * KU < x) == (sel == 1))
+        cp_async_or_zero(dst + (unsigned)(u * KU * (BT + 4) * sizeof(T)),
+                         src + u * KU * ak, x < xlim && k + u * KU < klim);
+  }
+}
+
+// asynchronous copies of a BT x GM_KS slab of an operand whose element
+// (x, k) is p[x sx + k sk] (SYM: p[k sx + x sk] where k < x, the mirror of
+// the lower triangle) into sm[k][x]; 0 past xlim and klim.  A slab that
+// straddles a symmetric operand's diagonal is copied in two parts, each
+// along its own contiguous index.
+template <typename T, int BT, bool SYM>
+__device__ __forceinline__ void gm_stage(T* sm, const T* p, long sx, long sk,
+                                         int x0, int xlim, int k0, int klim) {
+  const unsigned base = smem_addr(sm);
+  const bool mirror = SYM && k0 + GM_KS <= x0;   // wholly above: all k < x
+  if (SYM && !mirror && k0 < x0 + BT - 1) {
+    gm_part<T, BT>(base, p, sx, sk, x0, xlim, k0, klim, 0);
+    gm_part<T, BT>(base, p, sk, sx, x0, xlim, k0, klim, 1);
+  } else if (mirror) {
+    gm_part<T, BT>(base, p, sk, sx, x0, xlim, k0, klim, -1);
+  } else {
+    gm_part<T, BT>(base, p, sx, sk, x0, xlim, k0, klim, -1);
+  }
+}
+
+// bytes of shared memory an H9 product block of BT takes
+template <typename T>
+constexpr int gm_smem_bytes(int BT) {
+  return 2 * GM_STAGES * GM_KS * (BT + 4) * (int)sizeof(T);
 }
 
 // H9's products: C = (beta ? C : 0) + alpha A B over N fronts, A (M x K)
 // with element (m, k) at a[n a_n + m a_sx + k a_sk], B (K x Nn) with
 // element (k, x) at b[n b_n + x b_sx + k b_sk] (SYM: B symmetric, read
-// through its lower triangle k >= x), C (M x Nn) at c[n c_n + m c_rs +
-// x c_cs].  The operands and C lie in the same fronts (disjoint regions),
-// so nothing is __restrict__.  One BT x BT tile of C a block (grid: tiles x
-// splits x fronts), 16 x 16 threads of TMS x TMS outputs in groups of 4
-// consecutive rows and columns (16-byte shared loads), k slabs of KS staged
-// transposed in shared memory (rows padded by 4) in two buffers: the next
-// slab comes into registers while the current one is multiplied.  With
-// splits, block (tile, s) sums k in [s kchunk, (s + 1) kchunk) into
-// work[n][s] (M x Nn), which h9_reduce_kernel adds in order of s.
+// through the triangle k >= x), C (M x Nn) at c[n c_n + m c_rs + x c_cs].
+// The operands and C may lie in the same fronts (disjoint regions, or C
+// over B when one block reads all of B that its tile needs: the panel
+// solve), so nothing is __restrict__.  One BT x BT tile of C a block
+// (grid: tiles x splits x fronts), 16 x 16 threads of TMS x TMS outputs in
+// groups of 4 consecutive rows and columns (16-byte shared loads).  k runs
+// in slabs of GM_KS, staged transposed in shared memory in a ring of
+// GM_STAGES: asynchronous copies (cp.async, one value each, since a front's
+// rows start at any address) bring slab s + GM_STAGES - 1 in while slab s
+// is multiplied, one barrier a slab.  With splits, block (tile, s) sums k in
+// [s kchunk, (s + 1) kchunk) into work[n][s] (M x Nn), which
+// h9_reduce_kernel adds in order of s.
 template <typename T, int BT, bool SYM>
-__global__ void __launch_bounds__(GM_THREADS)
+__global__ void __launch_bounds__(GM_THREADS, GM_BLOCKS(T, BT))
 h9_gemm_kernel(const T* a, long a_n, long a_sx, long a_sk, const T* b,
                long b_n, long b_sx, long b_sk, T* c, long c_n, long c_rs,
                long c_cs, int M, int Nn, int K, int kchunk, int tiles_n,
                T alpha, int beta, T* work) {
-  constexpr int KS = BT == 128 ? 8 : 16;
   constexpr int S = BT + 4;
+  constexpr int SLAB = GM_KS * S;
   constexpr int TMS = BT / 16, G = TMS / 4, GS = BT / G;
-  constexpr int R = BT * KS / GM_THREADS;
-  static_assert(R * GM_THREADS == BT * KS && TMS % 4 == 0, "slab shape");
-  __shared__ __align__(16) T As[2][KS][S];
-  __shared__ __align__(16) T Bs[2][KS][S];
+  static_assert(BT * GM_KS % GM_THREADS == 0 && TMS % 4 == 0 &&
+                GM_KS % 8 == 0, "slab shape");
+  extern __shared__ __align__(16) unsigned char gm_smem[];
+  T* As = reinterpret_cast<T*>(gm_smem);     // GM_STAGES slabs of A, of B
+  T* Bs = As + GM_STAGES * SLAB;
   const long n = blockIdx.z;
   const int split = blockIdx.y, nsplit = gridDim.y;
   const int tm = blockIdx.x / tiles_n, tn = blockIdx.x - tm * tiles_n;
   const int m0 = tm * BT, n0 = tn * BT;
   const int kb0 = split * kchunk, kb1 = min(K, kb0 + kchunk);
+  const int ns = (kb1 - kb0 + GM_KS - 1) / GM_KS;
   const T* pa = a + n * a_n;
   const T* pb = b + n * b_n;
   const int tx = threadIdx.x % 16, ty = threadIdx.x / 16;
+  // slab s into its ring slot; a group is committed in any case, so that
+  // the count of groups in flight is the same in every iteration
+  auto stage = [&](int s) {
+    if (s < ns) {
+      const int kb = kb0 + s * GM_KS, slot = s % GM_STAGES;
+      gm_stage<T, BT, false>(As + slot * SLAB, pa, a_sx, a_sk, m0, M, kb,
+                             kb1);
+      gm_stage<T, BT, SYM>(Bs + slot * SLAB, pb, b_sx, b_sk, n0, Nn, kb,
+                           kb1);
+    }
+    asm volatile("cp.async.commit_group;\n" ::: "memory");
+  };
   T acc[TMS][TMS];
 #pragma unroll
   for (int p = 0; p < TMS; ++p)
 #pragma unroll
     for (int q = 0; q < TMS; ++q) acc[p][q] = T(0);
-  T ra[R], rb[R];
-  bool kfa = gm_kfast<KS, false>(a_sx, a_sk, m0, kb0);
-  bool kfb = gm_kfast<KS, SYM>(b_sx, b_sk, n0, kb0);
-  gm_load<T, BT, KS, false>(ra, pa, a_sx, a_sk, m0, M, kb0, kb1, kfa);
-  gm_load<T, BT, KS, SYM>(rb, pb, b_sx, b_sk, n0, Nn, kb0, kb1, kfb);
-  gm_store<T, BT, KS, S>(As[0], ra, kfa);
-  gm_store<T, BT, KS, S>(Bs[0], rb, kfb);
-  __syncthreads();
-  int buf = 0;
-  for (int kb = kb0; kb < kb1; kb += KS) {
-    const bool next = kb + KS < kb1;
-    if (next) {
-      kfa = gm_kfast<KS, false>(a_sx, a_sk, m0, kb + KS);
-      kfb = gm_kfast<KS, SYM>(b_sx, b_sk, n0, kb + KS);
-      gm_load<T, BT, KS, false>(ra, pa, a_sx, a_sk, m0, M, kb + KS, kb1, kfa);
-      gm_load<T, BT, KS, SYM>(rb, pb, b_sx, b_sk, n0, Nn, kb + KS, kb1, kfb);
-    }
 #pragma unroll
-    for (int k = 0; k < KS; ++k) {
+  for (int s = 0; s < GM_STAGES - 1; ++s) stage(s);
+  for (int s = 0; s < ns; ++s) {
+    // slab s has landed; the barrier also frees the slot of slab s - 1,
+    // which every thread has finished multiplying
+    asm volatile("cp.async.wait_group %0;\n" :: "n"(GM_STAGES - 2)
+                 : "memory");
+    __syncthreads();
+    stage(s + GM_STAGES - 1);
+    const T* as = As + (s % GM_STAGES) * SLAB;
+    const T* bs = Bs + (s % GM_STAGES) * SLAB;
+#pragma unroll
+    for (int k = 0; k < GM_KS; ++k) {
       T av[TMS], bv[TMS];
 #pragma unroll
       for (int g = 0; g < G; ++g) {
-        ld4(&As[buf][k][g * GS + 4 * ty], av + 4 * g);
-        ld4(&Bs[buf][k][g * GS + 4 * tx], bv + 4 * g);
+        ld4(as + k * S + g * GS + 4 * ty, av + 4 * g);
+        ld4(bs + k * S + g * GS + 4 * tx, bv + 4 * g);
       }
 #pragma unroll
       for (int p = 0; p < TMS; ++p)
 #pragma unroll
         for (int q = 0; q < TMS; ++q) acc[p][q] += av[p] * bv[q];
     }
-    if (next) {
-      // the other buffer was last read before the barrier that ended the
-      // slab before this one
-      gm_store<T, BT, KS, S>(As[buf ^ 1], ra, kfa);
-      gm_store<T, BT, KS, S>(Bs[buf ^ 1], rb, kfb);
-    }
-    __syncthreads();
-    buf ^= 1;
   }
+  asm volatile("cp.async.wait_all;\n" ::: "memory");
   T* pc = nsplit > 1 ? work + (n * nsplit + split) * (long)M * Nn
                      : c + n * c_n;
   const long rs = nsplit > 1 ? (long)Nn : c_rs, cs = nsplit > 1 ? 1 : c_cs;
@@ -921,170 +998,177 @@ __global__ void h9_reduce_kernel(const T* work, int nsplit, int M, int Nn,
   *o = (beta ? *o : T(0)) + alpha * s;
 }
 
-// x D = c for one row x of H9_BW values in registers (c on entry, zero
-// past kb), D in shared memory (the identity past kb) with its inverted
-// diagonal in dinv: from the last column, x_l, then its share subtracted
-// from the columns before (independent updates; D's row read 4 values a
-// load, the same address in every thread)
+// Out[a][b] = sum_i L[i][a] R[i][b] over i in [lo, hi) for the diagonal
+// kernel's 64 x 64 blocks in shared memory: 16 x 16 threads of 4 x 4
+// outputs, rows 4 ty + p and columns 4 tx + q (16-byte loads).  Every
+// product there has L upper triangular in (i, a) (an inverse or a factor,
+// read as its transpose) and no term past kb: i runs from 4 ty, which is
+// the same in a half warp, to kb.
 template <typename T>
-__device__ __forceinline__ void h9_solve_row(T (&x)[H9_BW],
-                                             const T (*D)[H9_LD],
-                                             const T* dinv) {
+__device__ __forceinline__ void h9_mm(T (&acc)[4][4], const T (*L)[H9_LD],
+                                      const T (*R)[H9_LD], int kb) {
+  const int tx = threadIdx.x % 16, ty = threadIdx.x / 16;
 #pragma unroll
-  for (int l = H9_BW - 1; l >= 0; --l) {
-    x[l] *= dinv[l];
+  for (int p = 0; p < 4; ++p)
 #pragma unroll
-    for (int m4 = 0; m4 < l; m4 += 4) {
-      T d[4];
-      ld4(&D[l][m4], d);
+    for (int q = 0; q < 4; ++q) acc[p][q] = T(0);
+#pragma unroll 4
+  for (int i = 4 * ty; i < kb; ++i) {
+    T a[4], b[4];
+    ld4(&L[i][4 * ty], a);
+    ld4(&R[i][4 * tx], b);
 #pragma unroll
-      for (int q = 0; q < 4; ++q)
-        if (m4 + q < l) x[m4 + q] -= x[l] * d[q];
-    }
+    for (int p = 0; p < 4; ++p)
+#pragma unroll
+      for (int q = 0; q < 4; ++q) acc[p][q] += a[p] * b[q];
   }
-}
-
-// the block's L (the identity past kb) and its inverted diagonal
-template <typename T>
-__device__ __forceinline__ void h9_load_diag(T (*D)[H9_LD], T* dinv,
-                                             const T* A, int F1, int j,
-                                             int kb) {
-  // unrolled, so that a thread's loads are in flight together: these
-  // kernels run few threads a front, and at the top levels few fronts
-#pragma unroll 16
-  for (int q = threadIdx.x; q < H9_BW * H9_BW; q += blockDim.x) {
-    const int l = q / H9_BW, m = q - (q / H9_BW) * H9_BW;
-    T v = (l < kb && m <= l) ? A[(long)(j + l) * F1 + j + m] : T(0);
-    if (l == m && l >= kb) v = T(1);
-    D[l][m] = v;
-    if (l == m) dinv[l] = T(1) / v;
-  }
-}
-
-// Xbar = Cbar D^{-1} for the rows i in [j + kb, F1) of the block's panel:
-// G[j + l][i], l < kb, is row i's Cbar.  One thread a row, held in
-// registers (``h9_solve_row``).
-template <typename T>
-__global__ void __launch_bounds__(H9_TRSM_ROWS)
-h9_trsm_kernel(T* __restrict__ front, int F1, int j, int kb) {
-  __shared__ __align__(16) T D[H9_BW][H9_LD];
-  __shared__ T dinv[H9_BW];
-  T* A = front + (long)blockIdx.y * F1 * F1;
-  h9_load_diag(D, dinv, A, F1, j, kb);
-  __syncthreads();
-  const int i = j + kb + blockIdx.x * H9_TRSM_ROWS + threadIdx.x;
-  if (i >= F1) return;
-  T x[H9_BW];
-#pragma unroll
-  for (int l = 0; l < H9_BW; ++l)
-    x[l] = l < kb ? A[(long)(j + l) * F1 + i] : T(0);
-  h9_solve_row(x, D, dinv);
-#pragma unroll
-  for (int l = 0; l < H9_BW; ++l)
-    if (l < kb) A[(long)(j + l) * F1 + i] = x[l];
 }
 
 // The reverse of the block's diagonal factor D = chol(E) in closed form,
-// one block of H9_BW threads a front, D and the cotangent in shared
-// memory: Dbar = Abar's block (G's upper triangle of the block, transposed,
-// and gdiag) minus Xbar^T C (sbuf, transposed); Phi = tril(D^T Dbar) with
-// its diagonal halved, S = Phi + Phi^T, and Esym = D^{-T} S D^{-1} (the JAX
-// package's `_chol_vjp`, whose 1/4 (dA + dA^T) is 1/2 Esym).  Thread t holds a
-// column, then a row, in registers: M's column t (D^T Dbar, a sum over
-// rows with independent accumulators), then D^T X = S for X's column t
-// and Esym D = X for Esym's row t, both ``h9_solve_row``.  Writes Esym,
-// symmetrized, into both triangles of the block (D is dead).
+// one block of H9_DIAG_THREADS a front, every step a product of 64 x 64
+// blocks in shared memory (``h9_mm``) but the inverse: Dinv = D^{-1}, a
+// column a thread of the first 64 (the identity past kb; written to dbuf
+// for the panel solve); S = Xbar^T C = Dinv^T T with T = Cbar^T C (tbuf,
+// the product of the panel's cotangent before its solve); Dbar = Abar's
+// block (G's upper triangle of the block, transposed, and gdiag) minus
+// tril(S); M = D^T Dbar, Phi = tril(M) with its diagonal halved, Sym = Phi
+// + Phi^T, and Esym = Dinv^T Sym Dinv (the JAX package's `_chol_vjp`,
+// whose 1/4 (dA + dA^T) is 1/2 Esym), as X = Dinv^T Sym, then its
+// transpose E^T = Dinv^T X^T.  Writes Esym, symmetrized, into both
+// triangles of the block (D is dead).
 template <typename T>
-__global__ void __launch_bounds__(H9_BW)
+__global__ void __launch_bounds__(H9_DIAG_THREADS)
 h9_diag_kernel(T* __restrict__ front, int F1, int P, int j, int kb,
-               const T* __restrict__ gdiag, const T* __restrict__ sbuf) {
-  __shared__ __align__(16) T D[H9_BW][H9_LD];
-  __shared__ T dinv[H9_BW];
+               const T* __restrict__ gdiag, const T* __restrict__ tbuf,
+               T* __restrict__ dbuf) {
   extern __shared__ __align__(16) unsigned char h9_smem[];
-  T (*E)[H9_BW + 1] = reinterpret_cast<T (*)[H9_BW + 1]>(h9_smem);
+  T (*B0)[H9_LD] = reinterpret_cast<T (*)[H9_LD]>(h9_smem);
+  T (*B1)[H9_LD] = B0 + H9_BW;
+  T (*B2)[H9_LD] = B1 + H9_BW;
+  T (*B3)[H9_LD] = B2 + H9_BW;
   const long n = blockIdx.x;
   T* A = front + n * F1 * F1;
-  const T* Sn = sbuf + n * H9_BW * H9_BW;
+  const T* Tn = tbuf + n * H9_BW * H9_BW;
+  T* Dn = dbuf + n * H9_BW * H9_BW;
   const T* gd = gdiag + n * P + j;
   const int t = threadIdx.x;
-  h9_load_diag(D, dinv, A, F1, j, kb);
-  // Dbar, zero past kb: G's rows j + m read along l (coalesced), sbuf
-  // holding S transposed
-#pragma unroll 16
-  for (int q = t; q < H9_BW * H9_BW; q += H9_BW) {
-    const int m = q / H9_BW, l = q - (q / H9_BW) * H9_BW;
+  const int tx = t % 16, ty = t / 16;
+  // B0 = D, B1 = D^T, B2 = T, B3 = Dbar but for S (zero past kb; its
+  // strict lower triangle from G's rows j + r, read along them), rd = 1 / D's
+  // diagonal; unrolled, so that a thread's loads are in flight together
+  // (at the top levels a launch is one or a few fronts: latency)
+  __shared__ T rd[H9_BW];
+#pragma unroll 8
+  for (int q = t; q < H9_BW * H9_BW; q += H9_DIAG_THREADS) {
+    const int r = q / H9_BW, s = q - (q / H9_BW) * H9_BW;
+    T d = r == s ? T(1) : T(0);
+    if (r < kb && s <= r) d = A[(long)(j + r) * F1 + j + s];
+    B0[r][s] = d;
+    B1[s][r] = d;
+    if (r == s) rd[r] = T(1) / d;
+    B2[r][s] = (r < kb && s < kb) ? Tn[r * H9_BW + s] : T(0);
     T e = T(0);
-    if (l < kb && m < l) e = A[(long)(j + m) * F1 + j + l] - Sn[m * H9_BW + l];
-    else if (l < kb && m == l) e = gd[l] - Sn[l * H9_BW + l];
-    E[l][m] = e;
+    if (s < kb && r < s) e = A[(long)(j + r) * F1 + j + s];
+    else if (s < kb && r == s) e = gd[s];
+    B3[s][r] = e;
   }
   __syncthreads();
-  T v[H9_BW];
+  // Dinv's column t: forward substitution, each solved value's share
+  // taken from the rows below at once (independent updates; D's column
+  // read as a row of D^T, the same address in every thread)
+  T y[H9_BW];
+  if (t < H9_BW) {
 #pragma unroll
-  for (int a = 0; a < H9_BW; ++a) v[a] = T(0);
+    for (int i = 0; i < H9_BW; ++i) y[i] = i == t ? T(1) : T(0);
 #pragma unroll
-  for (int i = 0; i < H9_BW; ++i) {     // M[a][t] = sum_{i >= a} D[i][a] Dbar[i][t]
-    const T e = E[i][t];
+    for (int i = 0; i < H9_BW; ++i) {
+      y[i] *= rd[i];
 #pragma unroll
-    for (int a4 = 0; a4 <= i; a4 += 4) {
-      T d[4];
-      ld4(&D[i][a4], d);
+      for (int m4 = (i + 1) / 4 * 4; m4 < H9_BW; m4 += 4) {
+        T d[4];
+        ld4(&B1[i][m4], d);
 #pragma unroll
-      for (int q = 0; q < 4; ++q)
-        if (a4 + q <= i) v[a4 + q] += d[q] * e;
+        for (int q = 0; q < 4; ++q)
+          if (m4 + q > i) y[m4 + q] -= d[q] * y[i];
+      }
     }
   }
   __syncthreads();
+  if (t < H9_BW) {
 #pragma unroll
-  for (int a = 0; a < H9_BW; ++a) E[a][t] = v[a];
+    for (int i = 0; i < H9_BW; ++i) B1[i][t] = y[i];
+  }
+  __syncthreads();
+  T acc[4][4];
+  h9_mm(acc, B1, B2, kb);                      // S = Dinv^T T
+#pragma unroll
+  for (int p = 0; p < 4; ++p)
+#pragma unroll
+    for (int q = 0; q < 4; ++q) {
+      const int a = 4 * ty + p, b = 4 * tx + q;
+      B3[a][b] = b <= a ? B3[a][b] - acc[p][q] : T(0);
+    }
+  __syncthreads();
+  h9_mm(acc, B0, B3, kb);                      // M = D^T Dbar
+#pragma unroll
+  for (int p = 0; p < 4; ++p)
+#pragma unroll
+    for (int q = 0; q < 4; ++q) B2[4 * ty + p][4 * tx + q] = acc[p][q];
   __syncthreads();
 #pragma unroll
-  for (int a = 0; a < H9_BW; ++a)       // S's column t: M[a][t], a >= t; M[t][a]
-    v[a] = a >= t ? E[a][t] : E[t][a];
-  h9_solve_row(v, D, dinv);             // X's column t
-  __syncthreads();
+  for (int p = 0; p < 4; ++p)                  // Sym
 #pragma unroll
-  for (int a = 0; a < H9_BW; ++a) E[a][t] = v[a];
+    for (int q = 0; q < 4; ++q) {
+      const int a = 4 * ty + p, b = 4 * tx + q;
+      B0[a][b] = b <= a ? B2[a][b] : B2[b][a];
+    }
   __syncthreads();
+  h9_mm(acc, B1, B0, kb);                      // X = Dinv^T Sym, stored
+#pragma unroll                                 // as Xt = Sym Dinv
+  for (int p = 0; p < 4; ++p)
 #pragma unroll
-  for (int a = 0; a < H9_BW; ++a) v[a] = E[t][a];
-  h9_solve_row(v, D, dinv);             // Esym's row t
-#pragma unroll
-  for (int a = 0; a < H9_BW; ++a) E[t][a] = v[a];     // the thread's own row
+    for (int q = 0; q < 4; ++q) B3[4 * tx + q][4 * ty + p] = acc[p][q];
   __syncthreads();
-#pragma unroll 16
-  for (int q = t; q < kb * kb; q += H9_BW) {
+  h9_mm(acc, B1, B3, kb);                      // E^T = Dinv^T Xt
+#pragma unroll
+  for (int p = 0; p < 4; ++p)
+#pragma unroll
+    for (int q = 0; q < 4; ++q) B2[4 * ty + p][4 * tx + q] = acc[p][q];
+#pragma unroll 4
+  for (int q = t; q < H9_BW * H9_BW; q += H9_DIAG_THREADS)
+    Dn[q] = B1[q / H9_BW][q % H9_BW];
+  __syncthreads();
+#pragma unroll 4
+  for (int q = t; q < kb * kb; q += H9_DIAG_THREADS) {
     const int l = q / kb, m = q - (q / kb) * kb;
-    A[(long)(j + l) * F1 + j + m] = T(0.5) * (E[l][m] + E[m][l]);
+    A[(long)(j + l) * F1 + j + m] = T(0.5) * (B2[l][m] + B2[m][l]);
   }
 }
 
-// A finished block's cotangent into the lower triangle, where L's columns
-// [j, j + kb) are dead: rows i >= j + kb get 1/2 G[j + l][i] (a 64 x 64
-// tile a block, transposed through shared memory), the diagonal block
-// 1/2 Esym (block 0).
+// A finished outer panel's cotangent into the lower triangle, where L's
+// columns [J, K) are dead: A[r][c] = 1/2 A[c][r] for c in [J, K) and r >= c
+// (rows c of the upper triangle hold G, and the diagonal blocks Esym in
+// both triangles).  A 64 x 64 tile a block (grid: row tiles from J x column
+// tiles x fronts), transposed through shared memory; tiles wholly above
+// the diagonal return.
 template <typename T>
 __global__ void __launch_bounds__(H9_THREADS)
-h9_final_kernel(T* __restrict__ front, int F1, int j, int kb) {
+h9_final_kernel(T* __restrict__ front, int F1, int J, int K) {
   __shared__ T tile[H9_BW][H9_BW + 1];
-  T* A = front + (long)blockIdx.y * F1 * F1;
-  if (blockIdx.x == 0) {
-    for (int t = threadIdx.x; t < kb * kb; t += H9_THREADS) {
-      const int l = t / kb, m = t - (t / kb) * kb;
-      if (m <= l) A[(long)(j + l) * F1 + j + m] *= T(0.5);
-    }
-    return;
-  }
-  const int i0 = j + kb + (blockIdx.x - 1) * H9_BW;
+  T* A = front + (long)blockIdx.z * F1 * F1;
+  const int r0 = J + blockIdx.x * H9_BW, c0 = J + blockIdx.y * H9_BW;
+  if (r0 + H9_BW <= c0) return;
   for (int t = threadIdx.x; t < H9_BW * H9_BW; t += H9_THREADS) {
-    const int l = t / H9_BW, ii = t - (t / H9_BW) * H9_BW;
-    if (l < kb && i0 + ii < F1) tile[l][ii] = A[(long)(j + l) * F1 + i0 + ii];
+    const int cc = t / H9_BW, rr = t - (t / H9_BW) * H9_BW;
+    const int c = c0 + cc, r = r0 + rr;
+    if (c < K && r < F1 && r >= c) tile[cc][rr] = A[(long)c * F1 + r];
   }
   __syncthreads();
   for (int t = threadIdx.x; t < H9_BW * H9_BW; t += H9_THREADS) {
-    const int ii = t / H9_BW, l = t - (t / H9_BW) * H9_BW;
-    if (l < kb && i0 + ii < F1)
-      A[(long)(i0 + ii) * F1 + j + l] = T(0.5) * tile[l][ii];
+    const int rr = t / H9_BW, cc = t - (t / H9_BW) * H9_BW;
+    const int c = c0 + cc, r = r0 + rr;
+    if (c < K && r < F1 && r >= c)
+      A[(long)r * F1 + c] = T(0.5) * tile[cc][rr];
   }
 }
 
@@ -1152,36 +1236,164 @@ extend_add_bwd_kernel(const T* __restrict__ dfront, int F1,
   }
 }
 
+// One block a front: the lower triangle of dfront in R row bands (one where
+// it fits beside a chunk, as at the leaf in float32), each staged once in
+// shared memory (packed rows, asynchronous copies along the rows); the
+// diagonal adds' and the RHS vector's cotangents are read from the staged
+// rows.  The elements come in chunks of CH, a thread's slots of the next
+// chunk loaded into registers while the block works on the current one;
+// a slot is staged as its position p, tri(p) = p (p + 1) / 2 less the
+// band's start and its value (a pad as position 0 and value 0).  A slot
+// sums over the element's slots l in order (the RHS weight last, at F1-1)
+// the staged entries
+// dfront[max(p_k, p_l)][min(p_k, p_l)] whose row lies in the band, at
+// max(tri(p_k) + p_l, tri(p_l) + p_k): an entry above the diagonal is read
+// at its mirror in shared memory.  The loop over l has no branch, so that
+// its loads overlap; a thread takes LB_G slots of one element, which share
+// each partner's loads (4 bytes of a random row each: the gathers are
+// bound by shared-memory bank conflicts).  With several bands each band walks every pair
+// again, and a slot's sums are added band by band into du and dre (the same
+// thread each time): a fixed order, no atomics.
 template <typename T>
-__global__ void leaf_assemble_bwd_kernel(const T* __restrict__ dfront,
-                                         const T* __restrict__ u,
-                                         const int* __restrict__ epos,
-                                         const T* __restrict__ rhs_elem,
-                                         int EL, int K, int F1,
-                                         T* __restrict__ du,
-                                         T* __restrict__ dre) {
-  const long n = blockIdx.y;
-  const long t = (long)blockIdx.x * blockDim.x + threadIdx.x;
+__global__ void __launch_bounds__(LB_THREADS)
+leaf_assemble_bwd_kernel(const T* __restrict__ dfront,
+                         const T* __restrict__ u,
+                         const int* __restrict__ epos,
+                         const T* __restrict__ rhs_elem, int EL, int K,
+                         int F1, int R, int CH, int acc_len,
+                         T* __restrict__ du, T* __restrict__ dre,
+                         T* __restrict__ ddv, T* __restrict__ drv) {
+  extern __shared__ __align__(16) unsigned char lb_smem[];
   const int K1 = K + 1;
-  if (t >= (long)EL * K1) return;
-  const long e = n * EL + t / K1;
-  const int k = (int)(t % K1);
-  const int* pe = epos + e * K;
-  const T* ue = u + e * K;
-  const int pk = (k < K) ? pe[k] : F1 - 1;
-  T acc = T(0);
-  if (pk >= 0) {
-    // dfront's lower triangle: [pk][pl] for pl <= pk, else its mirror
-    const T* Dn = dfront + n * (long)F1 * F1;
-    const T* row = Dn + (long)pk * F1;
-    acc = Dn[(long)(F1 - 1) * F1 + pk] * rhs_elem[e];
-    for (int l = 0; l < K; ++l) {
-      const int pl = pe[l];
-      if (pl >= 0) acc += (pl <= pk ? row[pl] : Dn[(long)pl * F1 + pk]) * ue[l];
+  T* band = reinterpret_cast<T*>(lb_smem);         // the band, packed rows
+  int2* pt = reinterpret_cast<int2*>(band + acc_len);  // the chunk's CH x K1
+  T* val = reinterpret_cast<T*>(pt + CH * K1);     // slots: (p, tri(p)), u
+  const long n = blockIdx.x;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const T* Dn = dfront + n * F1 * F1;
+  const T* un = u + n * EL * K;
+  const int* pn = epos + n * EL * K;
+  const T* rn = rhs_elem + n * EL;
+  // slot t of a chunk is (element, slot) = (t / K1, t % K1); the quotient
+  // by a multiply-high, exact for t K1 < 2^32
+  const unsigned magic = (unsigned)((0x100000000ull + K1 - 1) / K1);
+  int pr[LB_PF];
+  T vr[LB_PF];
+  auto load_chunk = [&](int e0) {   // this thread's slots into registers
+    const int S = (EL - e0 < CH ? EL - e0 : CH) * K1;
+#pragma unroll
+    for (int q = 0; q < LB_PF; ++q) {
+      const int t = tid + LB_THREADS * q;
+      pr[q] = -1;
+      vr[q] = T(0);
+      if (t < S) {
+        const int e = __umulhi((unsigned)t, magic), k = t - e * K1;
+        if (k < K) {
+          pr[q] = pn[(long)(e0 + e) * K + k];
+          vr[q] = un[(long)(e0 + e) * K + k];
+        } else {
+          pr[q] = F1 - 1;
+          vr[q] = rn[e0 + e];
+        }
+      }
+    }
+  };
+  const unsigned sband = smem_addr(band);
+  for (int b = 0; b < R; ++b) {
+    const int r0 = band_start(b, R, F1), r1 = band_start(b + 1, R, F1);
+    const int base = r0 * (r0 + 1) / 2;
+    if (EL > 0) load_chunk(0);
+    __syncthreads();                    // the previous band is consumed
+    for (int i = r0 + warp; i < r1; i += LB_WARPS) {
+      const T* row = Dn + (long)i * F1;
+      const unsigned o = sband + (unsigned)((i * (i + 1) / 2 - base) *
+                                            sizeof(T));
+      for (int j = lane; j <= i; j += 32)
+        cp_async_or_zero(o + (unsigned)(j * sizeof(T)), row + j, true);
+    }
+    asm volatile("cp.async.wait_all;\n" ::: "memory");
+    __syncthreads();
+    for (int i = r0 + tid; i < r1; i += LB_THREADS)
+      ddv[n * F1 + i] = band[i * (i + 1) / 2 + i - base];
+    if (r1 == F1) {                     // row F1-1: the RHS vector's
+      const T* last = band + (F1 - 1) * F1 / 2 - base;
+      for (int f = tid; f < F1; f += LB_THREADS)
+        drv[n * F1 + f] = last[f] + last[f];
+    }
+    for (int e0 = 0; e0 < EL; e0 += CH) {
+      const int S = (EL - e0 < CH ? EL - e0 : CH) * K1;
+      if (e0 > 0) __syncthreads();      // the previous chunk is consumed
+#pragma unroll
+      for (int q = 0; q < LB_PF; ++q) {
+        const int t = tid + LB_THREADS * q;
+        if (t < S) {
+          const bool real = pr[q] >= 0;
+          pt[t] = make_int2(real ? pr[q] : 0,
+                            real ? pr[q] * (pr[q] + 1) / 2 - base : LB_PAD);
+          val[t] = real ? vr[q] : T(0);
+        }
+      }
+      if (e0 + CH < EL) load_chunk(e0 + CH);
+      __syncthreads();
+      // thread t: slots [G q, G q + G) of element e (t = e TPE + q), which
+      // share each partner's loads
+      const int TPE = (K1 + LB_G - 1) / LB_G;
+      for (int t = tid; t < S / K1 * TPE; t += LB_THREADS) {
+        const int e = t / TPE, k0 = (t - e * TPE) * LB_G;
+        const int2* pe = pt + e * K1;
+        const T* ve = val + e * K1;
+        int pk[LB_G], tk[LB_G];
+        bool real[LB_G];
+#pragma unroll
+        for (int i = 0; i < LB_G; ++i) {
+          const int2 m = k0 + i < K1 ? pe[k0 + i] : make_int2(0, LB_PAD);
+          real[i] = m.y != LB_PAD;       // a pad sums at row 0, writes 0
+          pk[i] = real[i] ? m.x : 0;
+          tk[i] = real[i] ? m.y : 0;
+        }
+        T acc[LB_G];
+#pragma unroll
+        for (int i = 0; i < LB_G; ++i) acc[i] = T(0);
+        if (R == 1) {
+#pragma unroll 2
+          for (int l = 0; l < K1; ++l) {
+            const int2 o = pe[l];
+            const T w = ve[l];
+#pragma unroll
+            for (int i = 0; i < LB_G; ++i)
+              acc[i] += band[max(tk[i] + o.x, o.y + pk[i])] * w;
+          }
+        } else {
+#pragma unroll 2
+          for (int l = 0; l < K1; ++l) {
+            const int2 o = pe[l];
+            const T w = ve[l];
+#pragma unroll
+            for (int i = 0; i < LB_G; ++i) {
+              const int hi = max(pk[i], o.x);
+              T v = T(0);                // no load outside the band
+              if (hi >= r0 && hi < r1) v = band[max(tk[i] + o.x, o.y + pk[i])];
+              acc[i] += v * w;
+            }
+          }
+        }
+        const long g = n * EL + e0 + e;
+#pragma unroll
+        for (int i = 0; i < LB_G; ++i) {
+          const int k = k0 + i;
+          if (k >= K1) break;
+          T out = real[i] ? acc[i] + acc[i] : T(0);
+          if (k < K) {
+            if (b > 0) out += du[g * K + k];
+            du[g * K + k] = out;
+          } else {
+            if (b > 0) out += dre[g];
+            dre[g] = out;
+          }
+        }
+      }
     }
   }
-  if (k < K) du[e * K + k] = T(2) * acc;
-  else dre[e] = T(2) * acc;
 }
 
 template <typename T>
@@ -1207,21 +1419,15 @@ int launch_extend_add_bwd(const T* dfront, int N, int F1, const int* inv,
   return launch_diag_rhs_bwd(dfront, N, F1, ddv, drv, st);
 }
 
-template <typename T>
-int launch_leaf_assemble_bwd(const T* dfront, const T* u, const int* epos,
-                             const T* rhs_elem, int N, int EL, int K, int F1,
-                             T* du, T* dre, T* ddv, T* drv, cudaStream_t st) {
-  if (N == 0) return 0;
-  const long work = (long)EL * (K + 1);
-  if (work > 0) {
-    dim3 grid((unsigned)((work + 255) / 256), (unsigned)N);
-    leaf_assemble_bwd_kernel<T><<<grid, 256, 0, st>>>(dfront, u, epos,
-                                                      rhs_elem, EL, K, F1, du,
-                                                      dre);
-    const int rc = (int)cudaGetLastError();
-    if (rc) return rc;
+// the longest of R bands' packed lengths and the most rows a band has
+inline void band_extent(int F1, int R, int& acc_len, int& rows_max) {
+  acc_len = rows_max = 0;
+  for (int b = 0; b < R; ++b) {
+    const int r0 = band_start(b, R, F1), r1 = band_start(b + 1, R, F1);
+    const int len = r1 * (r1 + 1) / 2 - r0 * (r0 + 1) / 2;
+    if (len > acc_len) acc_len = len;
+    if (r1 - r0 > rows_max) rows_max = r1 - r0;
   }
-  return launch_diag_rhs_bwd(dfront, N, F1, ddv, drv, st);
 }
 
 // R bands of about LA_BAND_BYTES (at most F1 bands), the longest band's
@@ -1233,14 +1439,51 @@ void leaf_bands(int F1, int& R, int& acc_len, int& rows_max) {
   R = (int)((tri + per - 1) / per);
   if (R < 1) R = 1;
   if (R > F1) R = F1;
-  acc_len = rows_max = 0;
-  for (int b = 0; b < R; ++b) {
-    const int r0 = band_start(b, R, F1), r1 = band_start(b + 1, R, F1);
-    const int len = r1 * (r1 + 1) / 2 - r0 * (r0 + 1) / 2;
-    if (len > acc_len) acc_len = len;
-    if (r1 - r0 > rows_max) rows_max = r1 - r0;
-  }
+  band_extent(F1, R, acc_len, rows_max);
   acc_len += acc_len & 1;          // keep the staged values 8-byte aligned
+}
+
+template <typename T>
+int launch_leaf_assemble_bwd(const T* dfront, const T* u, const int* epos,
+                             const T* rhs_elem, int N, int EL, int K, int F1,
+                             T* du, T* dre, T* ddv, T* drv, cudaStream_t st) {
+  if (N == 0) return 0;
+  const int K1 = K + 1;
+  if (K1 > LB_PF * LB_THREADS) return (int)cudaErrorInvalidValue;
+  int dev, optin;
+  cudaError_t rc = cudaGetDevice(&dev);
+  if (!rc)
+    rc = cudaDeviceGetAttribute(&optin,
+                                cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
+  if (rc) return (int)rc;
+  // the fewest bands whose longest leaves room beside it for a chunk of 8
+  // elements (or all of them), and the largest chunk that room takes
+  const long long per_elem = (long long)K1 * (sizeof(T) + sizeof(int2));
+  const long long need = (EL < 8 ? (EL > 0 ? EL : 1) : 8) * per_elem;
+  int R = 1, acc_len, rows_max;
+  long long left;
+  for (;; ++R) {
+    band_extent(F1, R, acc_len, rows_max);
+    left = (long long)optin - (acc_len + 1) * (long long)sizeof(T);
+    if (left >= need) break;
+    if (R >= F1) return (int)cudaErrorInvalidValue;
+  }
+  long long CH = left / per_elem;
+  if (CH > LB_CHUNK) CH = LB_CHUNK;
+  if (CH * K1 > LB_PF * LB_THREADS) CH = LB_PF * LB_THREADS / K1;
+  if (CH > EL) CH = EL;
+  if (CH < 1) CH = 1;
+  const size_t chunk = (size_t)(CH * per_elem);
+  acc_len += acc_len & 1;          // keep the chunk's slots 8-byte aligned
+  const size_t smem = (size_t)acc_len * sizeof(T) + chunk;
+  rc = cudaFuncSetAttribute(leaf_assemble_bwd_kernel<T>,
+                            cudaFuncAttributeMaxDynamicSharedMemorySize,
+                            (int)smem);
+  if (rc) return (int)rc;
+  leaf_assemble_bwd_kernel<T><<<N, LB_THREADS, smem, st>>>(
+      dfront, u, epos, rhs_elem, EL, K, F1, R, (int)CH, acc_len, du, dre,
+      ddv, drv);
+  return (int)cudaGetLastError();
 }
 
 template <typename T>
@@ -1332,21 +1575,40 @@ int launch_front_factor(T* front, int N, int F1, int P, cudaStream_t st) {
   return launch_syrk_update(front, N, F1, P, F1, 0, P, st);
 }
 
-// an H9 product (see h9_gemm_kernel) over N fronts of F1 x F1; offsets
-// within a front.  Splits k while the tiles alone leave the card short of
-// GM_FILL blocks, each split at least GM_SPLIT_DEPTH deep, and the partial
-// sums fit ``work``.
+// the dynamic shared memory of H9's product and diagonal kernels
+template <typename T>
+int h9_setup() {
+  const struct { const void* f; int bytes; } k[] = {
+      {(const void*)h9_gemm_kernel<T, 64, false>, gm_smem_bytes<T>(64)},
+      {(const void*)h9_gemm_kernel<T, 64, true>, gm_smem_bytes<T>(64)},
+      {(const void*)h9_gemm_kernel<T, 128, false>, gm_smem_bytes<T>(128)},
+      {(const void*)h9_gemm_kernel<T, 128, true>, gm_smem_bytes<T>(128)},
+      {(const void*)h9_diag_kernel<T>,
+       4 * H9_BW * H9_LD * (int)sizeof(T)}};
+  for (const auto& e : k) {
+    const cudaError_t rc = cudaFuncSetAttribute(
+        e.f, cudaFuncAttributeMaxDynamicSharedMemorySize, e.bytes);
+    if (rc) return (int)rc;
+  }
+  return 0;
+}
+
+// an H9 product (see h9_gemm_kernel) over N fronts; a_n, b_n and c_n step
+// from one front's operand to the next's.  Splits k while the tiles alone
+// leave the card short of GM_FILL blocks, each split at least
+// GM_SPLIT_DEPTH deep, and the partial sums fit ``work``.  Adds its
+// launches to ``*launches``.
 template <typename T, bool SYM>
-int h9_gemm(T* front, int N, long FF, long a_off, long a_sx, long a_sk,
-            long b_off, long b_sx, long b_sk, T* c, long c_n, long c_rs,
+int h9_gemm(int N, const T* a, long a_n, long a_sx, long a_sk, const T* b,
+            long b_n, long b_sx, long b_sk, T* c, long c_n, long c_rs,
             long c_cs, int M, int Nn, int K, T alpha, int beta, T* work,
-            long work_len, cudaStream_t st) {
+            long work_len, int* launches, cudaStream_t st) {
   if (M <= 0 || Nn <= 0 || K <= 0) return 0;
   // 128-tiles on wide outputs, unless their rows would waste more than
   // 64-tiles' on a short one
   const bool big = Nn >= 192 &&
                    (M >= 192 || (M + 127) / 128 * 128 == (M + 63) / 64 * 64);
-  const int BT = big ? 128 : 64, KS = big ? 8 : 16;
+  const int BT = big ? 128 : 64;
   const int tiles_n = (Nn + BT - 1) / BT;
   const long tiles = (long)((M + BT - 1) / BT) * tiles_n;
   int nsplit = 1;
@@ -1354,79 +1616,124 @@ int h9_gemm(T* front, int N, long FF, long a_off, long a_sx, long a_sk,
          2L * nsplit * N * M * Nn <= work_len)
     nsplit *= 2;
   int kchunk = (K + nsplit - 1) / nsplit;
-  kchunk = (kchunk + KS - 1) / KS * KS;
+  kchunk = (kchunk + GM_KS - 1) / GM_KS * GM_KS;
   nsplit = (K + kchunk - 1) / kchunk;
   dim3 grid((unsigned)tiles, (unsigned)nsplit, (unsigned)N);
-  const T* a = front + a_off;
-  const T* b = front + b_off;
   if (big)
-    h9_gemm_kernel<T, 128, SYM><<<grid, GM_THREADS, 0, st>>>(
-        a, FF, a_sx, a_sk, b, FF, b_sx, b_sk, c, c_n, c_rs, c_cs, M, Nn, K,
+    h9_gemm_kernel<T, 128, SYM><<<grid, GM_THREADS, gm_smem_bytes<T>(128),
+                                  st>>>(
+        a, a_n, a_sx, a_sk, b, b_n, b_sx, b_sk, c, c_n, c_rs, c_cs, M, Nn, K,
         kchunk, tiles_n, alpha, beta, work);
   else
-    h9_gemm_kernel<T, 64, SYM><<<grid, GM_THREADS, 0, st>>>(
-        a, FF, a_sx, a_sk, b, FF, b_sx, b_sk, c, c_n, c_rs, c_cs, M, Nn, K,
+    h9_gemm_kernel<T, 64, SYM><<<grid, GM_THREADS, gm_smem_bytes<T>(64),
+                                 st>>>(
+        a, a_n, a_sx, a_sk, b, b_n, b_sx, b_sk, c, c_n, c_rs, c_cs, M, Nn, K,
         kchunk, tiles_n, alpha, beta, work);
+  ++*launches;
   int rc = (int)cudaGetLastError();
   if (rc || nsplit == 1) return rc;
   dim3 gr((unsigned)(((long)M * Nn + 255) / 256), (unsigned)N);
   h9_reduce_kernel<T><<<gr, 256, 0, st>>>(work, nsplit, M, Nn, c, c_n, c_rs,
                                           c_cs, alpha, beta);
+  ++*launches;
   return (int)cudaGetLastError();
 }
 
+// The schedule: the Schur product's reverse; seed; then outer panels [J, K)
+// of H9_OW columns from the last, and in each, column blocks [j, k) of
+// H9_BW from the last: T = Cbar^T C, the diagonal block's reverse (and
+// Dinv), the panel solve Xbar^T = Dinv^T Cbar^T in place, and the block's
+// Rbar and Bbar on the panel's own cotangent rows [J, j).  Once the panel's
+// blocks are done, its rows of G are final, and its contributions to the
+// rows c < J are two products of depth F1 - J and K - J: Rbar's, G[:J, J:K]
+// -= (W L[J:, :J])^T with W[x][i] = A[J + min(x, i)][J + max(x, i)] (the
+// panel's rows of the upper triangle, its diagonal blocks Esym, read as
+// one symmetric operand: the columns inside [J, K) of both Rbar and Bbar),
+// and Bbar's, G[:J, K:] -= L[J:K, :J]^T G[J:K, K:].  Then the panel's
+// cotangent goes to the lower triangle.  L[:, :J] is read until then, and
+// nothing before the panel's final kernel writes the lower triangle of
+// columns [J, K).
 template <typename T>
 int launch_front_factor_bwd(T* front, int N, int F1, int P, const T* gl,
-                            const T* gq, T* gdiag, T* sbuf, T* work,
-                            long work_len, cudaStream_t st) {
+                            const T* gq, T* gdiag, T* tbuf, T* dbuf, T* work,
+                            long work_len, int* launches, cudaStream_t st) {
   if (N == 0 || P == 0) return 0;
-  const long FF = (long)F1 * F1;
+  const long FF = (long)F1 * F1, BB = (long)H9_BW * H9_BW;
   const int B1 = F1 - P;
   int rc;
+  if ((rc = h9_setup<T>())) return rc;
+  // the Schur product's reverse: G[:P, P:] = -2 L_bp^T dupd_s (rows c of
+  // G; L_bp^T's (c, b) at [P + b][c], dupd_s's lower triangle at [P:, P:]),
+  // then the seed adds Lbar's row F1-1
+  rc = h9_gemm<T, true>(N, front + (long)P * F1, FF, 1, F1,
+                        front + (long)P * F1 + P, FF, 1, F1, front + P, FF,
+                        F1, 1, P, B1, B1, T(-2), 0, work, work_len, launches,
+                        st);
+  if (rc) return rc;
   h9_seed_kernel<T><<<dim3((P + H9_THREADS / 32 - 1) / (H9_THREADS / 32), N),
                       H9_THREADS, 0, st>>>(front, F1, P, gl, gq, gdiag);
+  ++*launches;
   if ((rc = (int)cudaGetLastError())) return rc;
-  // the Schur product's reverse: G[:P, P:] -= 2 L_bp^T dupd_s (rows c of
-  // G; L_bp^T's (c, b) at [P + b][c], dupd_s's lower triangle at [P:, P:])
-  rc = h9_gemm<T, true>(front, N, FF, (long)P * F1, 1, F1, (long)P * F1 + P,
-                        1, F1, front + P, FF, F1, 1, P, B1, B1, T(-2), 1,
-                        work, work_len, st);
-  if (rc) return rc;
-  const size_t smem = H9_BW * (H9_BW + 1) * sizeof(T);
-  if ((rc = (int)cudaFuncSetAttribute(
-           h9_diag_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-           (int)smem)))
-    return rc;
-  for (int j = (P - 1) / H9_BW * H9_BW; j >= 0; j -= H9_BW) {
-    const int k = P - j < H9_BW ? P : j + H9_BW, kb = k - j;
-    dim3 gt((F1 - k + H9_TRSM_ROWS - 1) / H9_TRSM_ROWS, N);
-    h9_trsm_kernel<T><<<gt, H9_TRSM_ROWS, 0, st>>>(front, F1, j, kb);
-    if ((rc = (int)cudaGetLastError())) return rc;
-    // S = Xbar^T C: (l, i) of G[j + l][k + i], (i, l') of L[k + i][j + l'];
-    // S[l][l'] at sbuf[l' H9_BW + l], for the diagonal kernel's loads
-    rc = h9_gemm<T, false>(front, N, FF, (long)j * F1 + k, F1, 1,
-                           (long)k * F1 + j, 1, F1, sbuf,
-                           (long)H9_BW * H9_BW, 1, H9_BW, kb, kb, F1 - k,
-                           T(1), 0, work, work_len, st);
-    if (rc) return rc;
-    h9_diag_kernel<T><<<N, H9_BW, smem, st>>>(front, F1, P, j, kb, gdiag,
-                                              sbuf);
-    if ((rc = (int)cudaGetLastError())) return rc;
-    if (j > 0) {
-      // Rbar: G[c][j + l] -= sum_i L[j + i][c] M[j + l][j + i], M = the
-      // block's rows [j, k) from column j: Esym, then Xbar^T
-      rc = h9_gemm<T, false>(front, N, FF, (long)j * F1, 1, F1,
-                             (long)j * F1 + j, F1, 1, front + j, FF, F1, 1,
-                             j, kb, F1 - j, T(-1), 1, work, work_len, st);
+  const int dsmem = 4 * H9_BW * H9_LD * (int)sizeof(T);
+  for (int J = (P - 1) / H9_OW * H9_OW; J >= 0; J -= H9_OW) {
+    const int K = P - J < H9_OW ? P : J + H9_OW;
+    for (int j = J + (K - 1 - J) / H9_BW * H9_BW; j >= J; j -= H9_BW) {
+      const int k = K - j < H9_BW ? K : j + H9_BW, kb = k - j;
+      T* Y = front + (long)j * F1 + k;      // Cbar^T: G[j + l][k + i]
+      // T = Cbar^T C: (l, i) of G[j + l][k + i], (i, l') of L[k + i][j + l']
+      rc = h9_gemm<T, false>(N, Y, FF, F1, 1, front + (long)k * F1 + j, FF,
+                             1, F1, tbuf, BB, H9_BW, 1, kb, kb, F1 - k, T(1),
+                             0, work, work_len, launches, st);
       if (rc) return rc;
-      // Bbar: G[c][k + i] -= sum_l L[j + l][c] G[j + l][k + i]
-      rc = h9_gemm<T, false>(front, N, FF, (long)j * F1, 1, F1,
-                             (long)j * F1 + k, 1, F1, front + k, FF, F1, 1,
-                             j, F1 - k, kb, T(-1), 1, work, work_len, st);
+      h9_diag_kernel<T><<<N, H9_DIAG_THREADS, dsmem, st>>>(
+          front, F1, P, j, kb, gdiag, tbuf, dbuf);
+      ++*launches;
+      if ((rc = (int)cudaGetLastError())) return rc;
+      // Xbar^T = Dinv^T Cbar^T, in place: depth kb, so no split, and a
+      // block reads all of its columns of Y before it writes them
+      rc = h9_gemm<T, false>(N, dbuf, BB, 1, H9_BW, Y, FF, 1, F1, Y, FF, F1,
+                             1, kb, F1 - k, kb, T(1), 0, nullptr, 0,
+                             launches, st);
+      if (rc) return rc;
+      if (j > J) {
+        // Rbar, rows c in [J, j): G[c][j + l] -= sum_i L[j + i][c]
+        // M[j + l][j + i], M = the block's rows [j, k) from column j: Esym,
+        // then Xbar^T
+        rc = h9_gemm<T, false>(N, front + (long)j * F1 + J, FF, 1, F1,
+                               front + (long)j * F1 + j, FF, F1, 1,
+                               front + (long)J * F1 + j, FF, F1, 1, j - J, kb,
+                               F1 - j, T(-1), 1, work, work_len, launches,
+                               st);
+        if (rc) return rc;
+        // Bbar, rows c in [J, j): G[c][k + i] -= sum_l L[j + l][c]
+        // G[j + l][k + i]
+        rc = h9_gemm<T, false>(N, front + (long)j * F1 + J, FF, 1, F1, Y, FF,
+                               1, F1, front + (long)J * F1 + k, FF, F1, 1,
+                               j - J, F1 - k, kb, T(-1), 1, work, work_len,
+                               launches, st);
+        if (rc) return rc;
+      }
+    }
+    if (J > 0) {
+      // the panel's Rbar on the rows c < J: G[c][J + x] -= sum_i
+      // L[J + i][c] W[x][i], W read through the upper triangle of the
+      // panel's rows (SYM, its triangle k >= x at [J + x][J + k])
+      rc = h9_gemm<T, true>(N, front + (long)J * F1, FF, 1, F1,
+                            front + (long)J * F1 + J, FF, F1, 1, front + J,
+                            FF, F1, 1, J, K - J, F1 - J, T(-1), 1, work,
+                            work_len, launches, st);
+      if (rc) return rc;
+      // the panel's Bbar on the rows c < J: G[c][K + x] -= sum_r
+      // L[J + r][c] G[J + r][K + x]
+      rc = h9_gemm<T, false>(N, front + (long)J * F1, FF, 1, F1,
+                             front + (long)J * F1 + K, FF, 1, F1, front + K,
+                             FF, F1, 1, J, F1 - K, K - J, T(-1), 1, work,
+                             work_len, launches, st);
       if (rc) return rc;
     }
-    dim3 gf(1 + (F1 - k + H9_BW - 1) / H9_BW, N);
-    h9_final_kernel<T><<<gf, H9_THREADS, 0, st>>>(front, F1, j, kb);
+    dim3 gf((F1 - J + H9_BW - 1) / H9_BW, (K - J + H9_BW - 1) / H9_BW, N);
+    h9_final_kernel<T><<<gf, H9_THREADS, 0, st>>>(front, F1, J, K);
+    ++*launches;
     if ((rc = (int)cudaGetLastError())) return rc;
   }
   return 0;
@@ -1478,18 +1785,21 @@ int gpv_front_factor_f64(double* front, int N, int F1, int P, void* stream) {
 
 int gpv_front_factor_bwd_f32(float* front, int N, int F1, int P,
                               const float* gl, const float* gq, float* gdiag,
-                              float* sbuf, float* work, long long work_len,
+                              float* tbuf, float* dbuf, float* work,
+                              long long work_len, int* launches,
                               void* stream) {
-  return launch_front_factor_bwd<float>(front, N, F1, P, gl, gq, gdiag, sbuf,
-                                        work, work_len, (cudaStream_t)stream);
+  return launch_front_factor_bwd<float>(front, N, F1, P, gl, gq, gdiag, tbuf,
+                                        dbuf, work, work_len, launches,
+                                        (cudaStream_t)stream);
 }
 
 int gpv_front_factor_bwd_f64(double* front, int N, int F1, int P,
                               const double* gl, const double* gq,
-                              double* gdiag, double* sbuf, double* work,
-                              long long work_len, void* stream) {
+                              double* gdiag, double* tbuf, double* dbuf,
+                              double* work, long long work_len, int* launches,
+                              void* stream) {
   return launch_front_factor_bwd<double>(front, N, F1, P, gl, gq, gdiag,
-                                         sbuf, work, work_len,
+                                         tbuf, dbuf, work, work_len, launches,
                                          (cudaStream_t)stream);
 }
 

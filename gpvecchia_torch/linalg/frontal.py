@@ -47,6 +47,8 @@ that require grad.
 
 from __future__ import annotations
 
+import ctypes
+
 import torch
 
 from ..csrc import cuda
@@ -79,15 +81,20 @@ H4_EDGE_SHAPES = (
     (2, 257, 100), (1, 150, 60), (1, 600, 599), (3, 700, 300),
     (2, 900, 130))
 
-# H9's column block (``H9_BW`` in csrc/frontal.cu)
+# H9's column block and outer panel (``H9_BW``, ``H9_OW`` in
+# csrc/frontal.cu)
 H9_BW = 64
+H9_OW = 128
 
 # (N, F1, P) shapes at the edges of H9's schedule (column blocks of 64,
-# product tiles of 64 and 128, split depths past 512): H4's, and P = 0 and
-# 1, P = F1 - 1 one past a block, and one front whose deep products split.
+# outer panels of 128, product tiles of 64 and 128, split depths past 256):
+# H4's, and P = 0 and 1, P = F1 - 1 one past a block, one front whose deep
+# products split, the leaf's P = 105 over two blocks, P at and one past
+# three panels, and a last panel of one block.
 H9_EDGE_SHAPES = H4_EDGE_SHAPES + (
     (2, 30, 0), (2, 20, 1), (2, 100, 63), (1, 66, 65), (1, 1500, 200),
-    (2, 700, 64))
+    (2, 700, 64), (3, 330, 105), (1, 400, 384), (1, 450, 385),
+    (2, 260, 192))
 
 # (N, F1, EL, K) shapes at the edges of H2's banded accumulation (rows cut
 # into bands of about 64 KB of the lower triangle, elements in chunks of at
@@ -452,16 +459,20 @@ def _factor_bwd_launch(front, P, g_logdet, g_quad):
     gl = g_logdet.to(dt).reshape(1).contiguous()
     gq = g_quad.to(dt).reshape(1).contiguous()
     # the cotangent of L's diagonal (L keeps its place until a column block
-    # is done), a block's Xbar^T C, and the split products' partial sums
+    # is done), a block's Cbar^T C and its diagonal factor's inverse, and the
+    # split products' partial sums
     gdiag = front.new_empty(N, P)
-    sbuf = front.new_empty(N, H9_BW, H9_BW)
+    tbuf = front.new_empty(N, H9_BW, H9_BW)
+    dbuf = front.new_empty(N, H9_BW, H9_BW)
     work = front.new_empty(_H9_WORK)
+    launches = ctypes.c_int(0)
     rc = cuda.entry("gpv_front_factor_bwd", dt)(
         front.data_ptr(), N, F1, P, gl.data_ptr(), gq.data_ptr(),
-        gdiag.data_ptr(), sbuf.data_ptr(), work.data_ptr(), work.numel(),
-        cuda.stream(front.device))
+        gdiag.data_ptr(), tbuf.data_ptr(), dbuf.data_ptr(), work.data_ptr(),
+        work.numel(), ctypes.addressof(launches), cuda.stream(front.device))
     cuda.check(rc, "front_factor_bwd")
     front_factor_bwd.launches += 1
+    front_factor_bwd.cuda_launches = launches.value
     return front
 
 
@@ -498,6 +509,7 @@ def front_factor_bwd(front, P, g_logdet, g_quad):
 
 
 front_factor_bwd.launches = 0
+front_factor_bwd.cuda_launches = 0   # CUDA launches of its last call
 
 
 # ---------------------------------------------------------- H6 ----

@@ -18,6 +18,7 @@ CPU the port's wrappers take the plain versions, so these tests run the
 Functions' own backward (checked by counting the plain backward calls).
 """
 
+import math
 import warnings
 
 import numpy as np
@@ -752,6 +753,84 @@ def _diag_block_rev(D, Dbar):
     return 0.5 * (E + E.mT)
 
 
+def _h9_emulate_two_level(front, P, gl, gq, W, OW):
+    """H9's two-level schedule in torch, step for step as csrc/frontal.cu
+    runs it, in place: the Schur product's reverse written into the upper
+    triangle's [:P, P:] and the seed; outer panels [J, K) of OW columns from the last and
+    in each, column blocks of W from the last (T = Cbar^T C, the diagonal
+    block's reverse through D's inverse, the panel solve as a product, Rbar
+    and Bbar on the panel's own rows); then the panel's contributions to
+    the rows c < J as two products, reading the panel's rows of the upper
+    triangle as one symmetric operand, and the panel's cotangent into the
+    lower triangle."""
+    N, F1, _ = front.shape
+    A = front
+    A[:, :P, P:] = -2.0 * A[:, P:, :P].mT @ FR._sym_lower(A[:, P:, P:])
+    gd = 2.0 * gl / torch.diagonal(A, 0, 1, 2)[:, :P]            # seed
+    for c in range(P):
+        A[:, c, c + 1:P] = 0.0
+    A[:, :P, F1 - 1] += 2.0 * gq * A[:, F1 - 1, :P]
+    eye = torch.eye(W, dtype=A.dtype)
+    for J in reversed(range(0, P, OW)):
+        K = min(P, J + OW)
+        for j in reversed(range(J, K, W)):
+            k = min(K, j + W)
+            D = torch.tril(A[:, j:k, j:k])
+            Dinv = torch.linalg.solve_triangular(D, eye[:k - j, :k - j],
+                                                 upper=False)
+            T = A[:, j:k, k:] @ A[:, k:, j:k]                  # Cbar^T C
+            Dbar = (torch.tril(A[:, j:k, j:k].mT, -1)
+                    + torch.diag_embed(gd[:, j:k]) - torch.tril(Dinv.mT @ T))
+            A[:, j:k, j:k] = _diag_block_rev_inv(D, Dinv, Dbar)
+            A[:, j:k, k:] = Dinv.mT @ A[:, j:k, k:]              # Xbar^T
+            if j > J:
+                A[:, J:j, j:k] -= (A[:, j:k, j:] @ A[:, j:, J:j]).mT
+                A[:, J:j, k:] -= A[:, j:k, J:j].mT @ A[:, j:k, k:]
+        if J > 0:
+            U = torch.triu(A[:, J:K, J:K])
+            Wm = torch.cat([U + torch.triu(U, 1).mT, A[:, J:K, K:]], dim=2)
+            A[:, :J, J:K] -= (Wm @ A[:, J:, :J]).mT
+            A[:, :J, K:] -= A[:, J:K, :J].mT @ A[:, J:K, K:]
+        for c in range(J, K):                                    # finalize
+            A[:, c:, c] = 0.5 * A[:, c, c:]
+    return A
+
+
+def _diag_block_rev_inv(D, Dinv, Dbar):
+    """``_diag_block_rev`` as the kernel computes it, by products with D's
+    inverse: Esym = Dinv^T Sym Dinv, Sym = Phi + Phi^T."""
+    M = torch.tril(D.mT @ Dbar)
+    Phi = M - 0.5 * torch.diag_embed(torch.diagonal(M, 0, 1, 2))
+    E = ((Phi + Phi.mT) @ Dinv).mT @ Dinv
+    return 0.5 * (E + E.mT)
+
+
+# (N, F1, P) one past the outer panels the two-level emulation runs
+H9_OW_SHAPES = [(2, 30, 17), (2, 40, 25), (1, 140, 129)]
+_H9_REFS = {}
+
+
+@pytest.mark.parametrize("W,OW", [(8, 16), (8, 24), (FR.H9_BW, FR.H9_OW)])
+@pytest.mark.parametrize("N,F1,P", H9_SHAPES + H9_OW_SHAPES)
+def test_h9_two_level_order_matches_factor_fronts_vjp(exact_forward, N, F1,
+                                                      P, W, OW):
+    """The kernel's two-level reverse sweep (inner blocks on the panel's
+    own rows, the panel's products on the rows left of it, D's inverse in
+    the diagonal block and the panel solve), emulated in torch, equals the
+    JAX package's cotangent to 1e-12 in float64, reading lower triangles
+    only (the input's strict upper triangle is NaN)."""
+    front, dupd, gl, gq = _h9_case(N, F1, P, seed=F1 + P)
+    if (N, F1, P) not in _H9_REFS:
+        _H9_REFS[N, F1, P] = _h9_jax_ref(front, dupd, gl, gq, P)
+    ref = _H9_REFS[N, F1, P]
+    got = _h9_emulate_two_level(
+        _factored_with_dupd(front, dupd, P, upper=torch.nan), P, gl, gq, W,
+        OW)
+    got = torch.tril(got).numpy()
+    assert np.isfinite(got).all()
+    _close_rel(got, np.tril(ref), H9_REL)
+
+
 @pytest.mark.parametrize("W", [8, FR.H9_BW])
 @pytest.mark.parametrize("N,F1,P", H9_SHAPES)
 def test_h9_block_order_matches_factor_fronts_vjp(exact_forward, N, F1, P,
@@ -810,10 +889,11 @@ def test_h9_h6_match_fused_level_vjp(exact_forward):
     _close_rel(_np(drv), ddiag2_j[:, 1, :F1], H9_REL)
 
 
-def test_h9_h7_match_fused_leaf_vjp(exact_forward):
-    """The leaf's backward as ``_backward`` runs it: H9 in place, then H7
-    from the front's lower triangle (strict upper NaN), vs ``jax.vjp`` of
-    ``fused_leaf`` in float64 with the likelihood's seeds; 1e-12."""
+def _leaf_vjp_case():
+    """A leaf's backward as ``_backward`` runs it up to H7: the front after
+    H9 (its strict upper triangle NaN), H7's inputs (u, epos, re), and
+    ``jax.vjp`` of ``fused_leaf`` in float64 with the likelihood's seeds
+    (du_j, dd2_j), the real elements' mask and (F1, K)."""
     rng = np.random.default_rng(3)
     N, P, B, EL, K = 2, 10, 6, 13, 4
     B1 = B + 1
@@ -863,13 +943,72 @@ def test_h9_h7_match_fused_leaf_vjp(exact_forward):
     front = front.masked_fill(up, torch.nan)
     FR.front_factor_bwd(front, P, _t(gl), _t(gq))
     front = front.masked_fill(up, torch.nan)
-    du, dre, ddv, drv = FR.leaf_assemble_bwd(front, _t(u), _t(epos), _t(re))
     real = (np.arange(ELp) < EL)[None, :]
+    return front, (_t(u), _t(epos), _t(re)), du_j, dd2_j, real, F1, K
+
+
+def test_h9_h7_match_fused_leaf_vjp(exact_forward):
+    """The leaf's backward as ``_backward`` runs it: H9 in place, then H7
+    from the front's lower triangle (strict upper NaN), vs ``jax.vjp`` of
+    ``fused_leaf`` in float64 with the likelihood's seeds; 1e-12."""
+    front, args, du_j, dd2_j, real, F1, K = _leaf_vjp_case()
+    du, dre, ddv, drv = FR.leaf_assemble_bwd(front, *args)
     _close_rel(_np(du), du_j[..., :K], H9_REL)
     _close_rel(np.where(real, _np(dre), 0.0),
                np.where(real, du_j[..., K], 0.0), H9_REL)
     _close_rel(_np(ddv), dd2_j[:, 0, :F1], H9_REL)
     _close_rel(_np(drv), dd2_j[:, 1, :F1], H9_REL)
+
+
+def _band_start(b, R, F1):
+    """``band_start`` of csrc/frontal.cu: the first row of band b of R."""
+    need = F1 * (F1 + 1) // 2 * b
+    r = int(math.sqrt(2.0 * need / R))
+    while r > 0 and (r - 1) * r // 2 * R >= need:
+        r -= 1
+    while r * (r + 1) // 2 * R < need:
+        r += 1
+    return r
+
+
+def _h7_emulate(dfront, u, epos, re, R):
+    """H7's kernel in torch, in its order of summation: the lower triangle
+    in R row bands; each slot sums, over the element's slots in order (the
+    RHS weight last, at F1-1), the entries dfront[max][min] of its pairs
+    whose row lies in the band, and adds twice that to its sum band by
+    band.  Returns (du, d rhs_elem)."""
+    N, EL, K = u.shape
+    F1 = dfront.shape[-1]
+    pos = torch.cat([epos.long(), torch.full((N, EL, 1), F1 - 1)], 2)
+    val = torch.cat([u, re[..., None]], 2)
+    out = torch.zeros_like(val)
+    hi = torch.maximum(pos[..., :, None], pos[..., None, :])
+    lo = torch.minimum(pos[..., :, None], pos[..., None, :])
+    ok = (pos[..., :, None] >= 0) & (pos[..., None, :] >= 0)
+    ar = torch.arange(N)[:, None, None, None]
+    ent = dfront[ar, hi.clamp(min=0), lo.clamp(min=0)]
+    for b in range(R):
+        r0, r1 = _band_start(b, R, F1), _band_start(b + 1, R, F1)
+        inb = ok & (hi >= r0) & (hi < r1)
+        acc = torch.zeros_like(val)
+        for l in range(K + 1):
+            acc = acc + torch.where(inb[..., l], ent[..., l], 0.0) \
+                * val[..., l, None]
+        out = out + (acc + acc)
+    return out[..., :K], out[..., K]
+
+
+@pytest.mark.parametrize("R", [1, 2, 5])
+def test_h7_band_order_matches_fused_leaf_vjp(exact_forward, R):
+    """H7's order of summation over R row bands (the kernel's at the leaf
+    is one band in float32, several in float64), emulated in torch from
+    the front's lower triangle, equals ``jax.vjp`` of ``fused_leaf`` in
+    float64 to 1e-12."""
+    front, (u, epos, re), du_j, _, real, F1, K = _leaf_vjp_case()
+    du, dre = _h7_emulate(torch.tril(front.nan_to_num(0.0)), u, epos, re, R)
+    _close_rel(_np(du), du_j[..., :K], H9_REL)
+    _close_rel(np.where(real, _np(dre), 0.0),
+               np.where(real, du_j[..., K], 0.0), H9_REL)
 
 
 def test_h6_h7_read_lower_triangles():
@@ -898,8 +1037,9 @@ def test_h6_h7_read_lower_triangles():
 
 def test_h9_edge_shapes_cover_the_schedule():
     """The list the card check runs holds the edges of H9's schedule
-    (column blocks of 64, product tiles of 64 and 128): P = 0, 1, below
-    and one past a block, P = F1 - 1, and a front one past a tile."""
+    (column blocks of 64, outer panels of 128, product tiles of 64 and
+    128): P = 0, 1, below and one past a block and a panel, P = F1 - 1,
+    P not a multiple of a panel, and a front one past a tile."""
     shapes = set(FR.H9_EDGE_SHAPES)
     P_of = {P for _, _, P in shapes}
     assert {0, 1} <= P_of
@@ -909,6 +1049,13 @@ def test_h9_edge_shapes_cover_the_schedule():
     assert any(P == F1 - 1 and P > W for _, F1, P in shapes)
     assert {129, 257} <= {F1 for _, F1, _ in shapes}
     assert all(0 <= P < F1 for _, F1, P in shapes)
+    OW = FR.H9_OW
+    assert OW % W == 0
+    assert {OW - 1, OW, OW + 1, 2 * OW + 1, 3 * OW, 3 * OW + 1,
+            OW + W} <= P_of
+    assert any(P == F1 - 1 and P > 2 * OW for _, F1, P in shapes)
+    assert any(P % OW and P % OW != 1 and P > OW for _, _, P in shapes)
+    assert (3, 330, 105) in shapes          # the leaf: two blocks
 
 
 # ------------------------------------------------- (f) gradcheck ----
