@@ -1872,8 +1872,11 @@ def h9_level_phase(shapes, dev, seed):
                 _h9_call(FR.front_factor_bwd, P),
                 _h9_call(FR.front_factor_bwd_plain, P), torch.tril, cost,
                 mutates=True, main=lvl == len(shapes) - 1)
-        # the CUDA launches of its last call (the schedule, splits included)
-        launches = FR.front_factor_bwd.cuda_launches
+        # the CUDA launches of one call (the schedule, splits included): the
+        # trace table sums them over the calls, so read across one more
+        n0 = _count("front_factor_bwd.cuda_launches")
+        _h9_call(FR.front_factor_bwd, P)(fronts[torch.float32].clone())
+        launches = _count("front_factor_bwd.cuda_launches") - n0
         del fronts, fr
         torch.cuda.empty_cache()
         for row in chk.rows[-2:]:
@@ -2048,10 +2051,8 @@ def grad_phase(spec, z, big, counters):
     """Value and gradient on the card; returns (results, launches, peak).
     Each kernel of ``counters`` must launch in this phase."""
     import gpvecchia_torch as gt
-    from gpvecchia_torch.linalg import frontal as FR
     nvec = np.linspace(0.05, 0.15, len(z))
-    for k in counters + (FR.front_factor_vjp,):
-        k.launches = 0
+    _reset(counters + ("front_factor_vjp",))
     torch.cuda.reset_peak_memory_stats()
     res = {}
     for dt in ((torch.float32,) if big else (torch.float64, torch.float32)):
@@ -2088,15 +2089,16 @@ def grad_phase(spec, z, big, counters):
             f"{np.abs(vec[2]).max():.6e}")
         log(f"  cuda {name}: first value+grad {first_s:.2f} s, median "
             f"value+grad {res[name]['value_grad_ms']:.2f} ms over 5")
-    launches = {k.__name__: k.launches for k in counters}
+    launches = _launches(counters)
     peak = torch.cuda.max_memory_allocated()
     log(f"  launches during the gradient phase: {launches}; H9's plain "
-        f"version front_factor_vjp ran {FR.front_factor_vjp.launches} times")
+        f"version front_factor_vjp ran "
+        f"{_launches(('front_factor_vjp',))['front_factor_vjp']} times")
     log(f"  peak device memory: {peak / 2**30:.3f} GiB")
-    if min(k.launches for k in counters) <= 0:
+    if min(launches.values()) <= 0:
         raise AssertionError(f"a kernel of the gradient path never "
                              f"launched: {launches}")
-    if FR.front_factor_vjp.launches:
+    if _launches(("front_factor_vjp",))["front_factor_vjp"]:
         raise AssertionError("the card's gradient ran H9's plain version")
     if big:
         return res, launches, peak
@@ -2239,8 +2241,7 @@ def general_phase(spec, z, big, counters, packed):
     smoothness-0.8 runs and none of ``packed`` (H8, solve_e0_bwd), which
     must launch in esqe's run."""
     import gpvecchia_torch as gt
-    for k in counters + packed:
-        k.launches = 0
+    _reset(counters + packed)
     torch.cuda.reset_peak_memory_stats()
     res = {}
     for dt in ((torch.float32,) if big else (torch.float64, torch.float32)):
@@ -2291,12 +2292,12 @@ def general_phase(spec, z, big, counters, packed):
             f"{res[name]['value_grad_ms']:.2f} ms (5 each)")
     # the counts and the peak of the smoothness-0.8 runs alone: what follows
     # launches the same kernels
-    launches = {k.__name__: k.launches for k in counters + packed}
+    launches = _launches(counters + packed)
     peak = torch.cuda.max_memory_allocated()
     log(f"  launches during the smoothness-0.8 runs: {launches}")
     log(f"  peak device memory: {peak / 2**30:.3f} GiB")
-    if min(k.launches for k in counters) <= 0 or any(
-            k.launches for k in packed):
+    if min(_launches(counters).values()) <= 0 or any(
+            _launches(packed).values()):
         raise AssertionError(f"the general path did not launch the general "
                              f"H1/H5 and the factor's kernels alone: "
                              f"{launches}")
@@ -2369,12 +2370,11 @@ def esqe_run(spec, z, packed):
     The launch counts of ``packed`` (H8, solve_e0_bwd) are set to 0 just
     before and read just after; each must be positive."""
     import gpvecchia_torch as gt
-    for k in packed:
-        k.launches = 0
+    _reset(packed)
     fn = gt.loglik_fn(spec, "esqe", device="cuda", dtype=torch.float32)
     r = value_grad(fn, torch.as_tensor(z, dtype=torch.float32,
                                        device="cuda"), NUGGET, ESQE_COVPARMS)
-    launches = {k.__name__: k.launches for k in packed}
+    launches = _launches(packed)
     log(f"  esqe {ESQE_COVPARMS} f32: loglik {r[0]!r}, dcovparms {r[1]}, "
         f"dnugget {float(r[2])!r}; launches {launches}")
     if not (np.isfinite(r[0]) and np.all(np.isfinite(r[1]))):
@@ -2664,8 +2664,7 @@ def pred_run(spec, z, big, counters, label):
     from gpvecchia_torch.linalg.multifrontal import mf_backward
     from gpvecchia_torch.plan import get_mf_plan, get_plan
     mf, _ = get_mf_plan(get_plan(spec))
-    for k in counters:
-        k.launches = 0
+    _reset(counters)
     torch.cuda.reset_peak_memory_stats()
     base = torch.cuda.memory_allocated()
     res, outs = {}, {}
@@ -2713,7 +2712,7 @@ def pred_run(spec, z, big, counters, label):
             f"by {r['selinv_bound_by']}), the mean's back-substitution "
             f"alone {r['backsub_ms']:.2f} ms (bound {r['backsub_bound_ms']:.3f} "
             f"by {r['backsub_bound_by']}) (medians of 5)")
-    launches = {k.__name__: k.launches for k in counters}
+    launches = _launches(counters)
     peak = torch.cuda.max_memory_allocated()
     res.update(launches=launches, peak_bytes=peak, base_bytes=base)
     log(f"  launches: {launches}; peak device memory {peak / 2**30:.3f} GiB "
@@ -2779,8 +2778,7 @@ def vl_phase(spec, locs, zb, big, counters):
     CPU plain path on an SGV spec of the first VL_CHECK_N points, m =
     VL_CHECK_M."""
     import gpvecchia_torch as gt
-    for k in counters:
-        k.launches = 0
+    _reset(counters)
     torch.cuda.reset_peak_memory_stats()
     base = torch.cuda.memory_allocated()
     kw = dict(max_iter=VL_MAX_ITER, device="cuda", dtype=torch.float32)
@@ -2789,7 +2787,7 @@ def vl_phase(spec, locs, zb, big, counters):
     first_s = time.perf_counter() - t0
     runs = [gt.calculate_posterior_VL(zb, spec, "logistic", COVPARMS, **kw)
             for _ in range(3)]
-    launches = {k.__name__: k.launches for k in counters}
+    launches = _launches(counters)
     peak = torch.cuda.max_memory_allocated()
     iters = runs[0]["iter"]
     for r in runs:
@@ -2844,8 +2842,27 @@ def vl_phase(spec, locs, zb, big, counters):
     return res
 
 
-def _launches(counters):
-    return {k.__name__: k.launches for k in counters}
+def _count(name):
+    """The count of ``name`` in the port's trace table (0 if absent)."""
+    from gpvecchia_torch.utils import trace
+    return trace.table().get(name, {"count": 0})["count"]
+
+
+# the launch counts of the kernels at the point ``_reset`` last marked them
+_LAUNCH_BASE = {}
+
+
+def _reset(kernels):
+    """Count the launches of ``kernels`` (names) afresh from here: the
+    trace table sums them over the process."""
+    for k in kernels:
+        _LAUNCH_BASE[k] = _count(f"launches.{k}")
+
+
+def _launches(kernels):
+    """{kernel: its launches since ``_reset``}."""
+    return {k: _count(f"launches.{k}") - _LAUNCH_BASE.get(k, 0)
+            for k in kernels}
 
 
 def _require(label, launches):
@@ -2991,8 +3008,7 @@ def mra_phase(locs, z, m, big, counters, bwd_counters, dev, seed):
     del mf
     dt = torch.float32
     zt = torch.as_tensor(z, dtype=dt, device="cuda")
-    for k in counters + bwd_counters:
-        k.launches = 0
+    _reset(counters + bwd_counters)
     torch.cuda.reset_peak_memory_stats()
     fn = gt.loglik_fn(spec, device="cuda", dtype=dt, with_aux=True)
     t0 = time.perf_counter()
@@ -3014,8 +3030,7 @@ def mra_phase(locs, z, m, big, counters, bwd_counters, dev, seed):
         f"(median of 3); launches {res['eval_launches']}; peak "
         f"{res['eval_peak_bytes'] / 2**30:.3f} GiB")
     _require("MRA evaluation", res["eval_launches"])
-    for k in counters + bwd_counters:
-        k.launches = 0
+    _reset(counters + bwd_counters)
     torch.cuda.reset_peak_memory_stats()
     fng = gt.loglik_fn(spec, device="cuda", dtype=dt)
     first = value_grad(fng, zt, NUGGET)
@@ -3045,8 +3060,7 @@ def mra_phase(locs, z, m, big, counters, bwd_counters, dev, seed):
         fres = dict(spec_s=fsecs["total"], plan_s=fplan_s, **fshape)
         fres["plan_kernels"] = _plan_kernel_checks("firstm", fmf, dev, seed)
         del fmf
-        for k in counters + bwd_counters:
-            k.launches = 0
+        _reset(counters + bwd_counters)
         fres["grad"] = value_grad(gt.loglik_fn(fspec, device="cuda",
                                                dtype=dt),
                                   zt, NUGGET)
@@ -3090,8 +3104,7 @@ def selected_phase(spec, z, packed):
     log(f"  get_mat_cov {mat_s:.2f} s; packed pair slots "
         f"{res['pair_slots_s']:.2f} s, {slots.nbytes / 2**20:.1f} MiB")
     del slots
-    for k in packed:
-        k.launches = 0
+    _reset(packed)
     ok = True
     for dt, tol, ptol in ((torch.float64, CROSS_REL, PRED_F64_REL),
                           (torch.float32, SLICE_F32_REL, PRED_F32_REL)):
@@ -3184,8 +3197,7 @@ def nuts_phase(spec_m, locs, z, big, counters, gen_counters):
     depth = 2
 
     def timed(key, eps):
-        for k in counters:
-            k.launches = 0
+        _reset(counters)
         calls[0], info = 0, {}
         torch.cuda.synchronize()
         t0 = time.perf_counter()
@@ -3223,8 +3235,7 @@ def nuts_phase(spec_m, locs, z, big, counters, gen_counters):
     spec = gt.vecchia_specify(locs[:nb], m=NUTS_M, conditioning="mra")
     kw = dict(num_warmup=NUTS_WARMUP, num_samples=NUTS_SAMPLES,
               num_chains=NUTS_CHAINS, seed=NUTS_SEED, max_depth=NUTS_DEPTH)
-    for k in gen_counters:
-        k.launches = 0
+    _reset(gen_counters)
     out, secs = {}, {}
     for dev in ("cuda", "cpu"):
         t0 = time.perf_counter()
@@ -3321,8 +3332,8 @@ def _v_counts(label, h1, h5, mf, grad):
     the multifrontal kernels H2-H4 never."""
     launches = _launches((h1, h5) + mf)
     log(f"  {label} launches: {launches}")
-    if h1.launches <= 0 or (grad and h5.launches <= 0) or any(
-            k.launches for k in mf):
+    if launches[h1] <= 0 or (grad and launches[h5] <= 0) or any(
+            launches[k] for k in mf):
         raise AssertionError(f"{label}: H1{' and H5' if grad else ''} must "
                              f"launch and H2-H4 must not: {launches}")
     return launches
@@ -3343,8 +3354,7 @@ def v_lik(label, spec, z, nug, grad, counters):
     import gpvecchia_torch as gt
     from gpvecchia_torch.inference.likelihood import zero_nugget_variant
     h1, h5, mf = counters
-    for k in (h1, h5) + mf:
-        k.launches = 0
+    _reset((h1, h5) + mf)
     # zero nuggets: loglik_fn takes the variant spec, as vecchia_likelihood
     spec_v = zero_nugget_variant(spec, np.broadcast_to(
         np.asarray(nug, np.float64), (spec.n_obs,)))
@@ -3408,8 +3418,7 @@ def v_pred(label, spec, z, counters, selinv=True):
     from gpvecchia_torch.inference.prediction import (_exact_pred_vars,
                                                       _pred_fns)
     h1, h5, mf = counters
-    for k in (h1, h5) + mf:
-        k.launches = 0
+    _reset((h1, h5) + mf)
     outs, res = {}, {}
     for dt in (torch.float64, torch.float32):
         name = str(dt).split(".")[-1]
@@ -3574,8 +3583,7 @@ def vpath_phase(locs, z, zb, locs_pred, m, big, counters, dev, seed,
         res["ic0"] = v_lik("ic0", built["ic0"], z, NUGGET, True, counters)
         res["ic0_pred"], _ = v_pred("ic0", built["ic0"], z, counters)
         h1, h5, mf = counters
-        for k in (h1, h5) + mf:
-            k.launches = 0
+        _reset((h1, h5) + mf)
         est = dict(z=z, locs=locs, theta_hat=np.array([*COVPARMS, NUGGET]),
                    covmodel="matern", trend="none", beta_hat=np.zeros(0))
         t0 = time.perf_counter()
@@ -3590,8 +3598,7 @@ def vpath_phase(locs, z, zb, locs_pred, m, big, counters, dev, seed,
             "vecchia_pred", h1, h5, mf, False))
         log(f"  vecchia_pred (default spec, f32, spec included): "
             f"{vp_s:.2f} s")
-        for k in (h1, h5) + mf:
-            k.launches = 0
+        _reset((h1, h5) + mf)
         kw = dict(max_iter=VL_MAX_ITER, device="cuda", dtype=torch.float32)
         gt.calculate_posterior_VL(zb, built["zy"], "logistic", COVPARMS, **kw)
         post = gt.calculate_posterior_VL(zb, built["zy"], "logistic",
@@ -3678,12 +3685,10 @@ MESH_TIMEOUT = 900.0
 MESH_F64_REL, MESH_GRAD_F64_REL, MESH_POST_F64_REL = 1e-10, 1e-8, 1e-10
 
 
-def _mesh_counters():
-    from gpvecchia_torch.kernels import matern_solve as MS
-    from gpvecchia_torch.linalg import frontal as FR
-    return (MS.matern_solve_e0, FR.leaf_assemble, FR.extend_add,
-            FR.front_factor, MS.matern_solve_e0_bwd, FR.extend_add_bwd,
-            FR.leaf_assemble_bwd, FR.front_factor_bwd)
+# the kernels whose launches the mesh phase counts
+_MESH_KERNELS = ("matern_solve_e0", "leaf_assemble", "extend_add",
+                 "front_factor", "matern_solve_e0_bwd", "extend_add_bwd",
+                 "leaf_assemble_bwd", "front_factor_bwd")
 
 
 def _grad_rel(got, ref):
@@ -3733,20 +3738,20 @@ def mesh_rank(rank, world, spec_path, z, nuts_path, nuts_z, nuts_kw, big):
         leaves=int(mf[-1]["piv_ids"].shape[0]),
         elements=int(sdev["NN"].shape[0]),
         sharded_depths=[s, s + len(mf) - 1], replicated_depths=s)
-    counters = _mesh_counters()
+    counters = _MESH_KERNELS
     res = {}
     for dt in ((torch.float32,) if big else (torch.float32, torch.float64)):
         name = str(dt).split(".")[-1]
         fn = PM.sharded_loglik_fn(spec, mesh=mesh, dtype=dt)
         zt = torch.as_tensor(z, dtype=dt, device=dev)
-        for k in counters:
-            k.launches = 0
-        PM.EXCHANGES.update(calls=0, bytes=0)
+        _reset(counters)
+        exchanged = [_count(f"mesh.exchange.{k}") for k in ("calls", "bytes")]
         torch.cuda.reset_peak_memory_stats(dev)
         value = float(fn(zt, COVPARMS, NUGGET))
         vg = value_grad(fn, zt, NUGGET)
         r = dict(value=value, vg=vg, launches=_launches(counters),
-                 exchanges=dict(PM.EXCHANGES),
+                 exchanges={k: _count(f"mesh.exchange.{k}") - c0 for k, c0
+                            in zip(("calls", "bytes"), exchanged)},
                  peak_bytes=torch.cuda.max_memory_allocated(dev))
         again = value_grad(fn, zt, NUGGET)
         r["bit_equal"] = (vg[0] == again[0] and all(
@@ -3993,7 +3998,6 @@ def main():
     from gpvecchia_torch.csrc import cuda, host
     from gpvecchia_torch.inference.likelihood import zkey
     from gpvecchia_torch.kernels import matern_solve as MS
-    from gpvecchia_torch.linalg import frontal as FR
     from gpvecchia_torch.plan import get_mf_plan, get_plan
     if "jax" in sys.modules or "gpvecchia_tpu" in sys.modules:
         raise RuntimeError("the port imported jax or the JAX package")
@@ -4078,9 +4082,9 @@ def main():
             raise AssertionError("SGV value+grad not bit-reproducible")
         del fn, zt
         vpath = vpath_phase(locs, z, zb, locs_pred, args.m, args.n > 100_000,
-                            (MS.matern_solve_e0, MS.matern_solve_e0_bwd,
-                             (FR.leaf_assemble, FR.extend_add,
-                              FR.front_factor)), dev, args.seed, args.profile)
+                            ("matern_solve_e0", "matern_solve_e0_bwd",
+                             ("leaf_assemble", "extend_add",
+                              "front_factor")), dev, args.seed, args.profile)
         print(json.dumps({"vpath": vpath, **v_names(vpath), "smi": smi},
                          default=float))
         return
@@ -4114,12 +4118,11 @@ def main():
 
     log("slice phase:")
     big = args.n > 100_000
-    counters = (MS.matern_solve_e0, FR.leaf_assemble, FR.extend_add,
-                FR.front_factor)
-    bwd_counters = (MS.matern_solve_e0_bwd, FR.extend_add_bwd,
-                    FR.leaf_assemble_bwd, FR.front_factor_bwd)
-    for k in counters:
-        k.launches = 0
+    counters = ("matern_solve_e0", "leaf_assemble", "extend_add",
+                "front_factor")
+    bwd_counters = ("matern_solve_e0_bwd", "extend_add_bwd",
+                    "leaf_assemble_bwd", "front_factor_bwd")
+    _reset(counters)
     torch.cuda.reset_peak_memory_stats()
     res = {}
     for dt in ((torch.float32,) if big else (torch.float64, torch.float32)):
@@ -4143,7 +4146,7 @@ def main():
                          eval_ms=statistics.median(times))
         log(f"  cuda {name}: loglik {ll!r}, first call {first_s:.2f} s, "
             f"median eval {res[name]['eval_ms']:.2f} ms over 5")
-    launches = {k.__name__: k.launches for k in counters}
+    launches = _launches(counters)
     peak = torch.cuda.max_memory_allocated()
     log(f"  launches during the slice phase: {launches}")
     log(f"  peak device memory: {peak / 2**30:.3f} GiB")
@@ -4191,10 +4194,11 @@ def main():
                                                 counters + bwd_counters)
 
     log("general-covariance phase (smoothness 0.8):")
-    gen_counters = (MS.GENERAL_FWD, MS.GENERAL_BWD) + counters[1:] \
+    gen_counters = ("matern_solve_e0[general]",
+                    "matern_solve_e0_bwd[general]") + counters[1:] \
         + bwd_counters[1:]
     gen, gen_launches, gen_peak, esqe_launches = general_phase(
-        spec, z, big, gen_counters, (MS.solve_e0, MS.solve_e0_bwd))
+        spec, z, big, gen_counters, ("solve_e0", "solve_e0_bwd"))
 
     log("estimation phase:")
     est = estimate_phase(locs, z, args.m, big, args.seed)
@@ -4211,7 +4215,7 @@ def main():
     sel = None
     if not big:
         log("selected-layout phase (MRA spec):")
-        sel = selected_phase(spec_m, z, (MS.solve_e0, MS.solve_e0_bwd))
+        sel = selected_phase(spec_m, z, ("solve_e0", "solve_e0_bwd"))
     log("NUTS phase (bench.py cfg5b, sample_posterior):")
     nuts, nuts_ref = nuts_phase(spec_m, locs, z, big,
                                 counters + bwd_counters, gen_counters)
@@ -4219,7 +4223,7 @@ def main():
 
     log("V-path phase (zy direct mode, obspred, IC0):")
     vpath = vpath_phase(locs, z, zb, locs_pred, args.m, big,
-                        (MS.matern_solve_e0, MS.matern_solve_e0_bwd,
+                        ("matern_solve_e0", "matern_solve_e0_bwd",
                          counters[1:]), dev, args.seed, args.profile)
     vnames = v_names(vpath)
     log(f"V path (f32): {vnames}")
@@ -4262,10 +4266,8 @@ def main():
     # general-covariance phase's smoothness-0.8 runs, H8 and solve_e0_bwd
     # from its esqe run
     path_launches = dict(launches,
-                         **{k.__name__: grad_launches[k.__name__]
-                            for k in bwd_counters},
-                         **{k.__name__: gen_launches[k.__name__]
-                            for k in (MS.GENERAL_FWD, MS.GENERAL_BWD)},
+                         **{k: grad_launches[k] for k in bwd_counters},
+                         **{k: gen_launches[k] for k in gen_counters[:2]},
                          **esqe_launches)
     kernels = []
     for name, chk in checks.items():

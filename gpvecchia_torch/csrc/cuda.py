@@ -24,6 +24,7 @@ from pathlib import Path
 
 import torch
 
+from ..utils import trace
 from .host import BUILD_DIR
 
 HERE = Path(__file__).resolve().parent
@@ -86,6 +87,7 @@ def nvcc() -> str:
     return found
 
 
+@trace.span("build.cuda")
 def _build(out: Path) -> None:
     """One ``nvcc -c`` per source, all started together, then one link."""
     global build_log
@@ -116,6 +118,7 @@ def _build(out: Path) -> None:
             raise RuntimeError("nvcc link failed:\n" + res.stderr[-8000:])
         os.replace(lib, out)
     build_log = "".join(logs)
+    trace.count("build.cuda.done")
 
 
 def get_lib():

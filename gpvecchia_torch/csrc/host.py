@@ -28,6 +28,8 @@ from pathlib import Path
 
 import numpy as np
 
+from ..utils import trace
+
 SOURCE = Path(__file__).resolve().parent / "hostops.cpp"
 BUILD_DIR = Path(__file__).resolve().parents[1] / "_build"
 _FLAGS = ["-O3", "-shared", "-fPIC"]
@@ -44,6 +46,7 @@ def library_path() -> Path:
     return BUILD_DIR / f"libhostops-{h.hexdigest()[:16]}.so"
 
 
+@trace.span("build.hostops")
 def _build(out: Path) -> None:
     out.parent.mkdir(parents=True, exist_ok=True)
     # compile to a private temp name, then rename: concurrent builders
@@ -54,6 +57,7 @@ def _build(out: Path) -> None:
         subprocess.run(["g++", *_FLAGS, str(SOURCE), "-o", tmp],
                        check=True, capture_output=True)
         os.replace(tmp, out)
+        trace.count("build.hostops.done")
     finally:
         if os.path.exists(tmp):
             os.unlink(tmp)

@@ -23,6 +23,7 @@ from scipy.spatial.distance import pdist
 from ..inference.likelihood import loglik_fn, resolve_device
 from ..inference.prediction import vecchia_prediction
 from ..spec import vecchia_specify
+from ..utils import trace
 
 __all__ = ["vecchia_estimate", "vecchia_pred"]
 
@@ -94,7 +95,8 @@ def vecchia_estimate(data, locs, X="constant", m=20, covmodel="matern",
 
     def value(lg):
         with torch.no_grad():
-            return float(neg_loglik(torch.as_tensor(lg, dtype=torch.float64)))
+            return float(trace.sync(neg_loglik(
+                torch.as_tensor(lg, dtype=torch.float64))))
 
     if method == "nelder-mead":
         def f(lg):
@@ -114,7 +116,7 @@ def vecchia_estimate(data, locs, X="constant", m=20, covmodel="matern",
             lgt = torch.tensor(lg, dtype=torch.float64, requires_grad=True)
             v = neg_loglik(lgt)
             (g,) = torch.autograd.grad(v, lgt)
-            v, g = float(v.detach()), g.numpy()
+            v, g = float(trace.sync(v).detach()), g.numpy()
             if not np.isfinite(v):
                 return 1e10, np.zeros_like(g)
             return v, np.where(np.isfinite(g), g, 0.0)
@@ -137,7 +139,7 @@ def vecchia_estimate(data, locs, X="constant", m=20, covmodel="matern",
             v.backward()
             opt.step()
             n_iter = i + 1
-            v = float(v.detach())
+            v = float(trace.sync(v).detach())
             if abs(v - last) < 1e-9 * (abs(last) + 1):
                 break
             last = v

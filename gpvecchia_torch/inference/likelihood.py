@@ -45,11 +45,13 @@ from ..linalg.sparse import (device_schedule, pair_sum, spread_pads,
 from ..linalg.trisolve import device_blocks, forward_solve
 from ..parallel.mesh import LOCAL
 from ..plan import ensure_v, get_mf_plan, get_plan, sel_pair_slots_packed
+from ..utils import trace
 
 __all__ = ["vecchia_likelihood", "loglik_fn", "zero_nugget_variant",
            "compute_v_factor"]
 
 
+@trace.span("plan.device_arrays")
 def _device_arrays(plan, device, dtype, ranks=1, rank=0):
     """Index tensors of the plan on ``device`` (cached per device, dtype
     and share): the whole plan, or rank ``rank``'s share among ``ranks``
@@ -242,6 +244,7 @@ def _local_cov(dev, cov):
     return kernel_fn, covmat, sel
 
 
+@trace.span("loglik")
 def _loglik_core(plan, dev, pack, covparms, nuggets, dtype, device,
                  cov=(None, None, None), share=None):
     """(log-likelihood, aux) on ``dev``: the whole plan, or with ``share``
@@ -261,7 +264,7 @@ def _loglik_core(plan, dev, pack, covparms, nuggets, dtype, device,
     covparms = covparms.to(dtype)
     if not torch.is_tensor(nuggets):
         nuggets = torch.as_tensor(np.array(nuggets, dtype=np.float64))
-    nug_in = nuggets.to(device, dtype)
+    nug_in = trace.to(nuggets, device, dtype)
 
     # NA handling by nugget inflation (GPvecchia R/vecchia_likelihood.R:45-58)
     big = pack["zv"] * 1e8
@@ -437,6 +440,7 @@ def _sel_slots(spec, device):
                            sel_pair_slots_packed(spec)).to(device))
 
 
+@trace.span("plan.covmodel")
 def _dispatch_covmodel(spec, covmodel, device, dtype):
     """(kernel_fn, covmat, sel): a kernel evaluator, a full covariance
     matrix on ``device``, or the selected layout's (flat values, packed
@@ -545,9 +549,9 @@ def vecchia_likelihood(z, spec, covparms, nuggets, covmodel="matern", *,
     fn = loglik_fn(spec, covmodel, device=device, dtype=dtype, with_aux=True)
     ll, aux = fn(np.asarray(z, np.float64),
                  np.asarray(covparms, np.float64), nug)
-    nbad = int(aux["n_dropped_rows"])
+    nbad = int(trace.sync(aux["n_dropped_rows"]))
     if nbad:
         warnings.warn(f"u_entries: Cholesky failed for {nbad} row(s); "
                       "their U rows were dropped (non-SPD conditioning "
                       "covariance)")
-    return float(ll)
+    return float(trace.sync(ll))

@@ -32,6 +32,8 @@ import math
 import torch
 from torch.autograd.function import once_differentiable
 
+from ..utils import trace
+
 __all__ = ["log_kv", "log_kv_impl", "log_kv_vjp", "nu_step"]
 
 _EULER_GAMMA = 0.5772156649015329
@@ -193,7 +195,7 @@ def log_kv_impl(nu, x: torch.Tensor) -> torch.Tensor:
 
     x_safe = torch.clamp(x, min=1e-30)
     small = x_safe <= 3.0
-    n_small = int(small.sum())
+    n_small = int(trace.sync(small.sum()))
     if n_small == x.numel():
         log_kmu, log_kmu1 = _branch(mu, x_safe, None, _temme_kmu, False)
     elif n_small == 0:
@@ -213,7 +215,7 @@ def log_kv_impl(nu, x: torch.Tensor) -> torch.Tensor:
     logk = log_kmu + torch.where(k > 0, torch.log(r), 0.0)
     # a NaN smoothness (a sampler's step to a non-finite theta) climbs no
     # step: its k and mu are NaN, and so is the result
-    for j in range(1, int(torch.nan_to_num(k).max())):
+    for j in range(1, int(trace.sync(torch.nan_to_num(k).max()))):
         r_new = 2.0 * (mu + j) / x_safe + 1.0 / r
         active = j < k                 # adds log r_{j+1} while j <= k-1
         logk = torch.where(active,

@@ -17,6 +17,7 @@ from typing import Callable
 import torch
 from torch.autograd.function import once_differentiable
 
+from ..utils import trace
 from .bessel import log_kv_impl, log_kv_vjp
 
 __all__ = ["matern", "matern_dgds", "matern_general_dg", "nu_index", "esqe",
@@ -34,7 +35,7 @@ def nu_index(nu) -> int:
     A tensor is read detached, on the host: the index selects code, and the
     closed forms are not differentiated in nu (d/dnu is 0 there, as in the
     JAX package)."""
-    nu = float(nu.detach()) if torch.is_tensor(nu) else float(nu)
+    nu = float(trace.sync(nu).detach()) if torch.is_tensor(nu) else float(nu)
     return {0.5: 0, 1.5: 1, 2.5: 2}.get(nu, GENERAL)
 
 

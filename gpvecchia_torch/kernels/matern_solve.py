@@ -54,6 +54,7 @@ from torch.autograd.function import once_differentiable
 from ..csrc import cuda
 from ..linalg.sparse import device_schedule, segment_sum
 from ..plan import slot_sum_schedule
+from ..utils import trace
 from .bessel import _MAX_CLIMB, _SERIES_ITERS, _temme_mu, nu_step
 from .covariance import (GENERAL, matern, matern_dgds, matern_general_dg,
                          nu_index, safe_dist)
@@ -61,7 +62,7 @@ from .covariance import (GENERAL, matern, matern_dgds, matern_general_dg,
 __all__ = ["matern_solve_e0", "matern_solve_e0_plain", "matern_solve_e0_bwd",
            "matern_solve_e0_bwd_plain", "solve_e0", "solve_e0_plain",
            "packed_solve_e0", "solve_e0_bwd", "solve_e0_bwd_plain",
-           "max_neighbors", "general_params", "GENERAL_FWD", "GENERAL_BWD"]
+           "max_neighbors", "general_params"]
 
 _SMEM_PER_BLOCK = 48 * 1024     # static-launch shared-memory bound
 _MAX_WARPS = 8
@@ -131,20 +132,6 @@ def _general_params(nu: float, dtype: torch.dtype) -> np.ndarray:
     out = np.asarray(words, dtype=np.float64)
     out.setflags(write=False)
     return out
-
-
-class LaunchCount:
-    """The launch count of a kernel that has no wrapper of its own."""
-
-    def __init__(self, name: str):
-        self.__name__ = name
-        self.launches = 0
-
-
-# the general Matern's instances of H1 and H5 (``matern_solve_e0`` and
-# ``matern_solve_e0_bwd`` count the closed forms' launches)
-GENERAL_FWD = LaunchCount("matern_solve_e0[general]")
-GENERAL_BWD = LaunchCount("matern_solve_e0_bwd[general]")
 
 
 def _smem_per_warp(F: int, d: int, itemsize: int, vecs: int) -> int:
@@ -299,7 +286,7 @@ def _zero_rows(xbar):
 def _params(covparms, dtype):
     """(sig2, rho, nu_idx, gen): gen is None at a closed form, else the
     general Matern's ``general_params`` in ``dtype``."""
-    cp = [float(c) for c in covparms.detach().cpu().tolist()]
+    cp = [float(c) for c in trace.sync(covparms).detach().cpu().tolist()]
     idx = nu_index(cp[2])
     gen = general_params(cp[2], dtype) if idx == GENERAL else None
     return cp[0], cp[1], idx, gen
@@ -332,7 +319,8 @@ def _launch(locs, NN, valid, resp, nug_point, covparms):
         rc = cuda.entry("gpv_matern_solve_e0", locs.dtype)(
             *args, warps, cuda.stream(locs.device))
     cuda.check(rc, "matern_solve_e0")
-    (matern_solve_e0 if gen is None else GENERAL_FWD).launches += 1
+    trace.count("launches.matern_solve_e0" if gen is None
+                else "launches.matern_solve_e0[general]")
     return x
 
 
@@ -358,7 +346,8 @@ def _launch_bwd(locs, NN, valid, resp, nug_point, covparms, x, xbar):
         rc = cuda.entry("gpv_matern_solve_e0_bwd", locs.dtype)(
             *args, warps, cuda.stream(locs.device))
     cuda.check(rc, "matern_solve_e0_bwd")
-    (matern_solve_e0_bwd if gen is None else GENERAL_BWD).launches += 1
+    trace.count("launches.matern_solve_e0_bwd" if gen is None
+                else "launches.matern_solve_e0_bwd[general]")
     return dpar, dslot
 
 
@@ -405,16 +394,14 @@ def reduce_bwd(dpar, dslot, xbar, NN, resp, nug_point, covparms):
     ref, sched = _SLOT_SUMS.get(id(NN), (None, None))
     if ref is None or ref() is not NN:
         sched = device_schedule(
-            slot_sum_schedule(NN.cpu().numpy(), resp.cpu().numpy(),
+            slot_sum_schedule(trace.sync(NN).cpu().numpy(),
+                              trace.sync(resp).cpu().numpy(),
                               nug_point.shape[0]), dslot.device, pairs=False)
         key = id(NN)
         _SLOT_SUMS[key] = (weakref.ref(
             NN, lambda _, key=key: _SLOT_SUMS.pop(key, None)), sched)
     dnug = segment_sum(dslot.reshape(-1), sched)
-    return dcov.to(covparms.device, covparms.dtype), dnug
-
-
-matern_solve_e0_bwd.launches = 0
+    return trace.to(dcov, covparms.device, covparms.dtype), dnug
 
 
 class _MaternSolveE0(torch.autograd.Function):
@@ -432,6 +419,7 @@ class _MaternSolveE0(torch.autograd.Function):
 
     @staticmethod
     @once_differentiable
+    @trace.span("u_entries.bwd")
     def backward(ctx, xbar):
         locs, NN, valid, resp, nug_point, covparms, x = ctx.saved_tensors
         dcov, dnug = matern_solve_e0_bwd(locs, NN, valid, resp, nug_point,
@@ -454,9 +442,6 @@ def matern_solve_e0(locs, NN, valid, resp, nug_point, covparms):
     if not torch.is_tensor(covparms):
         covparms = torch.tensor(covparms, dtype=torch.float64)
     return _MaternSolveE0.apply(locs, NN, valid, resp, nug_point, covparms)
-
-
-matern_solve_e0.launches = 0
 
 
 # ------------------------- H8: K3 on a given packed covariance ----
@@ -500,7 +485,7 @@ def _launch_solve(Cp, F):
         rc = cuda.entry("gpv_solve_e0", Cp.dtype)(
             Cp.data_ptr(), n, F, x.data_ptr(), warps, cuda.stream(Cp.device))
     cuda.check(rc, "solve_e0")
-    solve_e0.launches += 1
+    trace.count("launches.solve_e0")
     return x
 
 
@@ -518,9 +503,6 @@ def solve_e0(Cp):
     if _device("solve_e0", Cp):
         return _launch_solve(Cp, F)
     return solve_e0_plain(Cp)
-
-
-solve_e0.launches = 0
 
 
 class _PackedSolveE0(torch.autograd.Function):
@@ -571,7 +553,7 @@ def _launch_solve_bwd(Cp, x, xbar):
         rc = cuda.entry("gpv_solve_e0_bwd", Cp.dtype)(
             *args, warps, cuda.stream(Cp.device))
     cuda.check(rc, "solve_e0_bwd")
-    solve_e0_bwd.launches += 1
+    trace.count("launches.solve_e0_bwd")
     return g
 
 
@@ -592,6 +574,3 @@ def solve_e0_bwd(Cp, x, xbar):
     else:
         g = solve_e0_bwd_plain(Cp, x, xbar)
     return torch.where(_zero_rows(xbar), 0.0, g)
-
-
-solve_e0_bwd.launches = 0

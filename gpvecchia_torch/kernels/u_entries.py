@@ -28,6 +28,7 @@ from __future__ import annotations
 import torch
 from torch.autograd.function import once_differentiable
 
+from ..utils import trace
 from .covariance import GENERAL, matern, nu_index, safe_dist
 from .matern_solve import (matern_solve_e0, max_neighbors, packed_solve_e0,
                            solve_e0)
@@ -128,6 +129,7 @@ class _PackedSolve(torch.autograd.Function):
 
     @staticmethod
     @once_differentiable
+    @trace.span("u_entries.bwd")
     def backward(ctx, xbar):
         nug_point, covparms = ctx.saved_tensors
         ng = nug_point.detach().requires_grad_(True)
@@ -148,6 +150,7 @@ class _PackedSolve(torch.autograd.Function):
         return dng, dcp, None, None
 
 
+@trace.span("u_entries")
 def u_entries(locs, NN, valid, cond, nug_point, covparms, kernel_fn=None,
               covmat=None, sel=None):
     """(col, bad): U-column coefficients (n, m+1) aligned with NNarray (self
@@ -172,7 +175,7 @@ def u_entries(locs, NN, valid, cond, nug_point, covparms, kernel_fn=None,
 
         def kernel_fn(dist, cp):
             return matern(dist, cp, GENERAL)
-    cp = covparms.to(locs.device, locs.dtype)
+    cp = trace.to(covparms, locs.device, locs.dtype)
     x = _PackedSolve.apply(nug_point, cp, (locs, NN, valid, cond),
                            (kernel_fn, covmat, sel))
     return _postprocess(x, valid)

@@ -52,6 +52,7 @@ import ctypes
 import torch
 
 from ..csrc import cuda
+from ..utils import trace
 
 __all__ = ["leaf_assemble", "leaf_assemble_plain", "extend_add",
            "extend_add_plain", "front_factor", "front_factor_plain",
@@ -219,7 +220,7 @@ def _leaf_launch(u, epos, rhs_elem, dvec, rvec, front=None):
         rvec.data_ptr(), N, EL, K, F1, front.data_ptr(),
         cuda.stream(u.device))
     cuda.check(rc, "leaf_assemble")
-    leaf_assemble.launches += 1
+    trace.count("launches.leaf_assemble")
     return front
 
 
@@ -250,8 +251,6 @@ def leaf_assemble(u, epos, rhs_elem, dvec, rvec):
     return _leaf_launch(*(t.contiguous()
                           for t in (u, epos, rhs_elem, dvec, rvec)))
 
-
-leaf_assemble.launches = 0
 
 
 # ---------------------------------------------------------------- H3 ----
@@ -285,7 +284,7 @@ def _eadd_launch(upd, ext, dvec, rvec, front=None):
         upd.data_ptr(), sn, sc, sr, ext.data_ptr(), dvec.data_ptr(),
         rvec.data_ptr(), N, F1, front.data_ptr(), cuda.stream(upd.device))
     cuda.check(rc, "extend_add")
-    extend_add.launches += 1
+    trace.count("launches.extend_add")
     return front
 
 
@@ -318,8 +317,6 @@ def extend_add(upd, ext, dvec, rvec):
     return _eadd_launch(upd, ext, dvec, rvec)
 
 
-extend_add.launches = 0
-
 
 # ---------------------------------------------------------------- H4 ----
 
@@ -344,7 +341,7 @@ def _factor_launch(front, P):
     rc = cuda.entry("gpv_front_factor", front.dtype)(
         front.data_ptr(), N, F1, P, cuda.stream(front.device))
     cuda.check(rc, "front_factor")
-    front_factor.launches += 1
+    trace.count("launches.front_factor")
     return front
 
 
@@ -369,8 +366,6 @@ def front_factor(front, P):
     return _factor_launch(front, P)
 
 
-front_factor.launches = 0
-
 
 # ------------------------------------------------------- H9 ----
 
@@ -394,9 +389,10 @@ def front_factor_vjp(front, P, dL_pp, dL_bp, dupd=None):
     Reads L_pp through ``tril`` (the kernel leaves the upper triangle of
     [:P, :P] uninitialized) and L_bp_aug from [P:, :P]; never reads [P:, P:].
     The JAX package's ``_factor_pullback`` formula for formula; H9's plain
-    version (``launches`` counts its calls: none on the card's path).
+    version (``launches.front_factor_vjp`` counts its calls: none on the
+    card's path).
     """
-    _vjp_count.launches += 1
+    trace.count("launches.front_factor_vjp")
     N, F1, _ = front.shape
     L = torch.tril(front[:, :P, :P])
     Lbp = front[:, P:, :P]
@@ -412,10 +408,6 @@ def front_factor_vjp(front, P, dL_pp, dL_bp, dupd=None):
     dfront[:, P:, :P] = 0.5 * dA_bp
     dfront[:, :P, P:] = 0.5 * dA_bp.mT
     return dfront
-
-
-front_factor_vjp.launches = 0
-_vjp_count = front_factor_vjp   # counts in the function, even if rebound
 
 
 def _sym_lower(x):
@@ -471,8 +463,8 @@ def _factor_bwd_launch(front, P, g_logdet, g_quad):
         gdiag.data_ptr(), tbuf.data_ptr(), dbuf.data_ptr(), work.data_ptr(),
         work.numel(), ctypes.addressof(launches), cuda.stream(front.device))
     cuda.check(rc, "front_factor_bwd")
-    front_factor_bwd.launches += 1
-    front_factor_bwd.cuda_launches = launches.value
+    trace.count("launches.front_factor_bwd")
+    trace.count("front_factor_bwd.cuda_launches", launches.value)
     return front
 
 
@@ -506,10 +498,6 @@ def front_factor_bwd(front, P, g_logdet, g_quad):
     if P == 0:
         return front
     return _factor_bwd_launch(front, P, g_logdet, g_quad)
-
-
-front_factor_bwd.launches = 0
-front_factor_bwd.cuda_launches = 0   # CUDA launches of its last call
 
 
 # ---------------------------------------------------------- H6 ----
@@ -559,7 +547,7 @@ def _eadd_bwd_launch(dfront, inv, out):
         dfront.data_ptr(), N, F1, inv.data_ptr(), Bc1, out.data_ptr(), sn, sc,
         sr, ddv.data_ptr(), drv.data_ptr(), cuda.stream(dfront.device))
     cuda.check(rc, "extend_add_bwd")
-    extend_add_bwd.launches += 1
+    trace.count("launches.extend_add_bwd")
     return ddv, drv
 
 
@@ -595,8 +583,6 @@ def extend_add_bwd(dfront, ext, out):
     return _eadd_bwd_launch(dfront.contiguous(), _inverse_ext(ext, Bc1), out)
 
 
-extend_add_bwd.launches = 0
-
 
 # ---------------------------------------------------------- H7 ----
 
@@ -629,7 +615,7 @@ def _leaf_bwd_launch(dfront, u, epos, rhs_elem):
         N, EL, K, F1, du.data_ptr(), dre.data_ptr(), ddv.data_ptr(),
         drv.data_ptr(), cuda.stream(u.device))
     cuda.check(rc, "leaf_assemble_bwd")
-    leaf_assemble_bwd.launches += 1
+    trace.count("launches.leaf_assemble_bwd")
     return du, dre, ddv, drv
 
 
@@ -657,5 +643,3 @@ def leaf_assemble_bwd(dfront, u, epos, rhs_elem):
     return _leaf_bwd_launch(*(t.contiguous()
                               for t in (dfront, u, epos, rhs_elem)))
 
-
-leaf_assemble_bwd.launches = 0

@@ -15,6 +15,8 @@ import dataclasses
 
 import numpy as np
 
+from ..utils import trace
+
 __all__ = ["MFLevel", "MFPlan", "build_mf_plan"]
 
 @dataclasses.dataclass
@@ -66,6 +68,7 @@ def _median_split_tree(xy, depth):
     return leaf
 
 
+@trace.span("plan.mf")
 def build_mf_plan(elem_verts, elem_xy, n_vert, leaf_elems=96,
                   max_depth=None) -> MFPlan:
     """Build the multifrontal plan.

@@ -53,6 +53,7 @@ import torch
 
 from torch.autograd.function import once_differentiable
 
+from ..utils import trace
 from .frontal import (_sym_lower, extend_add, extend_add_bwd, front_factor,
                       front_factor_bwd, leaf_assemble, leaf_assemble_bwd)
 
@@ -151,6 +152,7 @@ def _piv_vec(piv_ids, vec, fill, F1):
     return torch.cat([v, vec.new_zeros(N, F1 - P)], dim=1)
 
 
+@trace.span("mf.fwd")
 def _forward(levels, first, dvec, rhs_elem, rhs_vert, keep):
     """(logdet, quad, fronts, schur) over ``levels``: fronts[d] is level
     d's factored front when ``keep``, else None (released once its parent
@@ -164,29 +166,38 @@ def _forward(levels, first, dvec, rhs_elem, rhs_vert, keep):
     quad = first.new_zeros(())
     fronts = [None] * len(levels)
     blk = None if "elem_pt" in levels[-1] else first
+    depth0 = _depth0(levels)
     for d in range(len(levels) - 1, -1, -1):
         lv = levels[d]
         P, F1 = lv["P"], lv["F1"]
-        dv = _piv_vec(lv["piv_ids"], dvec, 1.0, F1).to(dt)
-        rv = _piv_vec(lv["piv_ids"], rhs_vert, 0.0, F1).to(dt)
-        if blk is None:
-            u, re = _leaf_values(lv["elem_pt"], first, rhs_elem)
-            front = leaf_assemble(u, lv["elem_pos"], re, dv, rv)
-            del u, re
-        else:
-            # the children's Schur blocks, read in place from their fronts
-            front = extend_add(blk.unflatten(0, (-1, 2)), lv["ext_aug"], dv,
-                               rv)
-        blk = None
-        front_factor(front, P)
-        diag = torch.diagonal(front, dim1=1, dim2=2)[:, :P]
-        logdet = logdet + 2.0 * torch.sum(torch.log(diag))
-        y = front[:, F1 - 1, :P]
-        quad = quad + torch.sum(y * y)
-        blk = front[:, P:, P:]
+        with trace.span(f"mf.fwd.d{depth0 + d}"):
+            dv = _piv_vec(lv["piv_ids"], dvec, 1.0, F1).to(dt)
+            rv = _piv_vec(lv["piv_ids"], rhs_vert, 0.0, F1).to(dt)
+            if blk is None:
+                u, re = _leaf_values(lv["elem_pt"], first, rhs_elem)
+                front = leaf_assemble(u, lv["elem_pos"], re, dv, rv)
+                del u, re
+            else:
+                # the children's Schur blocks, read in place from their
+                # fronts
+                front = extend_add(blk.unflatten(0, (-1, 2)), lv["ext_aug"],
+                                   dv, rv)
+            blk = None
+            front_factor(front, P)
+            diag = torch.diagonal(front, dim1=1, dim2=2)[:, :P]
+            logdet = logdet + 2.0 * torch.sum(torch.log(diag))
+            y = front[:, F1 - 1, :P]
+            quad = quad + torch.sum(y * y)
+            blk = front[:, P:, P:]
         if keep:
             fronts[d] = front
     return logdet, quad, fronts, blk
+
+
+def _depth0(levels):
+    """The tree depth of ``levels[0]``: 0 for the whole tree or a share's
+    top levels, the number of top levels for a share's own levels."""
+    return 0 if levels.top is None else len(levels.top)
 
 
 def _leaf_values(ept, u_elem, rhs_elem):
@@ -208,6 +219,7 @@ def _scatter(acc, ids, vals):
                    vals.reshape((-1,) + acc.shape[1:]))
 
 
+@trace.span("mf.bwd")
 def _backward(levels, fronts, u_elem, rhs_elem, n_vert, g_logdet, g_quad,
               g_schur=None, d_first=None, consume=True):
     """Cotangents of ``_forward``'s inputs: (du_elem, ddvec, drhs_elem,
@@ -223,42 +235,44 @@ def _backward(levels, fronts, u_elem, rhs_elem, n_vert, g_logdet, g_quad,
     ddvec = fronts[0].new_zeros(n_vert)
     drhs_vert = fronts[0].new_zeros(n_vert)
     D = len(levels) - 1
+    depth0 = _depth0(levels)
     for d, lv in enumerate(levels):
-        front = fronts[d] if consume else fronts[d].clone()
-        P = lv["P"]
-        if d == 0:
-            # the first level's Schur block feeds the exchange (or nothing,
-            # at the root); below it, the parent's H6 wrote this level's
-            # Schur-block cotangent into [P:, P:]
-            blk = front[:, P:, P:]
-            if g_schur is None:
-                blk.zero_()
+        with trace.span(f"mf.bwd.d{depth0 + d}"):
+            front = fronts[d] if consume else fronts[d].clone()
+            P = lv["P"]
+            if d == 0:
+                # the first level's Schur block feeds the exchange (or
+                # nothing, at the root); below it, the parent's H6 wrote this
+                # level's Schur-block cotangent into [P:, P:]
+                blk = front[:, P:, P:]
+                if g_schur is None:
+                    blk.zero_()
+                else:
+                    blk.copy_(0.5 * (g_schur + g_schur.mT))
+            front_factor_bwd(front, P, g_logdet, g_quad)
+            if d < D:
+                Pc = levels[d + 1]["P"]
+                child_blk = fronts[d + 1][:, Pc:, Pc:]
+                child_blk.zero_()
+                ddv, drv = extend_add_bwd(front, lv["ext_aug"],
+                                          child_blk.unflatten(0, (-1, 2)))
+            elif not leaf:
+                ddv, drv = extend_add_bwd(front, lv["ext_aug"],
+                                          d_first.unflatten(0, (-1, 2)))
+                # H6 adds into lower triangles (H3 read those of the
+                # exchanged blocks): the full symmetric blocks
+                d_first.copy_(_sym_lower(d_first))
             else:
-                blk.copy_(0.5 * (g_schur + g_schur.mT))
-        front_factor_bwd(front, P, g_logdet, g_quad)
-        if d < D:
-            Pc = levels[d + 1]["P"]
-            child_blk = fronts[d + 1][:, Pc:, Pc:]
-            child_blk.zero_()
-            ddv, drv = extend_add_bwd(front, lv["ext_aug"],
-                                      child_blk.unflatten(0, (-1, 2)))
-        elif not leaf:
-            ddv, drv = extend_add_bwd(front, lv["ext_aug"],
-                                      d_first.unflatten(0, (-1, 2)))
-            # H6 adds into lower triangles (H3 read those of the exchanged
-            # blocks): the full symmetric blocks
-            d_first.copy_(_sym_lower(d_first))
-        else:
-            ept = lv["elem_pt"]
-            u, re = _leaf_values(ept, u_elem, rhs_elem)
-            du, dre, ddv, drv = leaf_assemble_bwd(front, u, lv["elem_pos"],
-                                                  re)
-            _scatter(du_elem, ept, du)
-            _scatter(drhs_elem, ept, dre)
-            del u, re, du, dre
-        del front
-        _scatter(ddvec, lv["piv_ids"], ddv[:, :P])
-        _scatter(drhs_vert, lv["piv_ids"], drv[:, :P])
+                ept = lv["elem_pt"]
+                u, re = _leaf_values(ept, u_elem, rhs_elem)
+                du, dre, ddv, drv = leaf_assemble_bwd(front, u,
+                                                      lv["elem_pos"], re)
+                _scatter(du_elem, ept, du)
+                _scatter(drhs_elem, ept, dre)
+                del u, re, du, dre
+            del front
+            _scatter(ddvec, lv["piv_ids"], ddv[:, :P])
+            _scatter(drhs_vert, lv["piv_ids"], drv[:, :P])
     return du_elem, ddvec, drhs_elem, drhs_vert
 
 

@@ -69,13 +69,11 @@ import torch
 import torch.distributed as dist
 from torch.autograd.function import once_differentiable
 
+from ..utils import trace
+
 __all__ = ["make_mesh", "shard_rows", "sharded_loglik_core",
            "sharded_loglik_fn", "sharded_posterior_core", "run_local",
-           "RowShare", "row_share", "mesh_device", "EXCHANGES"]
-
-# the exchanges of this process: calls of ``all_sum`` and the bytes they
-# carried (summed over the calls; reset by the caller)
-EXCHANGES = {"calls": 0, "bytes": 0}
+           "RowShare", "row_share", "mesh_device"]
 
 
 def make_mesh(rows=None, chains=1, device_type="cuda"):
@@ -122,8 +120,8 @@ class RowShare:
         """``buf`` summed over the ranks, in place."""
         if self.size == 1:
             return buf
-        EXCHANGES["calls"] += 1
-        EXCHANGES["bytes"] += buf.numel() * buf.element_size()
+        trace.count("mesh.exchange.calls")
+        trace.count("mesh.exchange.bytes", buf.numel() * buf.element_size())
         dist.all_reduce(buf, group=self.group)
         return buf
 

@@ -33,6 +33,7 @@ import numpy as np
 
 from .csrc import host
 from .symbolic import csr_from_coo_lower, symbolic_cholesky
+from .utils import trace
 
 __all__ = ["LikelihoodPlan", "build_likelihood_plan", "get_plan",
            "ensure_v", "slot_sum_schedule", "get_mf_plan", "get_sel_pair_slots",
@@ -613,6 +614,7 @@ def _build_bwd_blocks(colptr, v_rows, n_lat, v_perm):
 # main plan builder
 # --------------------------------------------------------------------------
 
+@trace.span("plan.likelihood")
 def build_likelihood_plan(spec) -> LikelihoodPlan:
     """Static per-point index arrays for the likelihood (dtype-free)."""
     NN = spec.NNarray.astype(np.int64)

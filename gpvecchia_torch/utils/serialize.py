@@ -19,6 +19,7 @@ from __future__ import annotations
 import numpy as np
 
 from ..spec import VecchiaSpec
+from . import trace
 
 __all__ = ["save_spec", "load_spec"]
 
@@ -42,6 +43,7 @@ def save_spec(spec: VecchiaSpec, path) -> None:
     np.savez_compressed(path, **data)
 
 
+@trace.span("spec.load")
 def load_spec(path) -> VecchiaSpec:
     """Load a VecchiaSpec written by ``save_spec`` (this package's or the
     JAX package's)."""

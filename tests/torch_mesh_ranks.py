@@ -16,6 +16,7 @@ import gpvecchia_torch as GT
 from gpvecchia_torch.fit import mcmc as TM
 from gpvecchia_torch.inference.likelihood import loglik_fn
 from gpvecchia_torch.parallel import mesh as PM
+from gpvecchia_torch.utils import trace
 
 # tests/test_mesh.py's problem
 N, M, SEED = 600, 12, 1988
@@ -74,6 +75,13 @@ def tree_share(dev):
                 u_rows=int(dev["NN"].shape[0]))
 
 
+def _exchanges():
+    """This rank's exchanges since the trace table was last emptied."""
+    tab = trace.table()
+    return {k: tab.get(f"mesh.exchange.{k}", {"count": 0})["count"]
+            for k in ("calls", "bytes")}
+
+
 def one_thread():
     """One intra-op thread a rank: the ranks share the machine with other
     test workers, and MKL gives a loaded process fewer threads than asked,
@@ -112,11 +120,11 @@ def mesh_rank(rank, world):
         out["chains"] = (c, float(cfn(z, COVPARMS * (1.0, 1.1)[c],
                                       np.full(N, NUG))))
         tspec, tz = problem(TREE_N, TREE_M, TREE_SEED)
-        PM.EXCHANGES.update(calls=0, bytes=0)
+        trace.reset()
         tfn, tdev = PM.sharded_loglik_core(tspec, mesh=mesh, device="cpu")
         nug = np.full(TREE_N, NUG)
         out["tree_big"] = dict(tree_share(tdev), value=float(tfn(
-            tdev, tz, COVPARMS, nug)), exchanges=dict(PM.EXCHANGES))
+            tdev, tz, COVPARMS, nug)), exchanges=_exchanges())
         if rank == 0:
             out["tree_big"]["unsharded"] = float(loglik_fn(
                 tspec, device="cpu")(tz, COVPARMS, nug))
