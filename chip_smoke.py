@@ -209,6 +209,7 @@ before printing any result.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
 import os
 import shutil
@@ -676,6 +677,19 @@ def _h15_inputs(locs, NN, valid, resp, nug, dev, covparms=COVPARMS):
     return mk
 
 
+@contextlib.contextmanager
+def shared_route(dt):
+    """Every F on H1 and H5's shared-memory route in ``dt`` (the route every
+    F took before the register route existed) inside the block."""
+    from gpvecchia_torch.kernels import matern_solve as MS
+    saved = MS.REGS_MAX_F[dt]
+    MS.REGS_MAX_F[dt] = 0
+    try:
+        yield
+    finally:
+        MS.REGS_MAX_F[dt] = saved
+
+
 def h15_run(h1, h5, locs, NN, valid, resp, label, main, seed, dev,
             dtypes=(torch.float64, torch.float32), against_shared=False):
     """H1 and H5 against their plain versions (H5's: torch autograd through
@@ -734,13 +748,9 @@ def h15_run(h1, h5, locs, NN, valid, resp, label, main, seed, dev,
         if MS.route(F, dt) != "registers":
             continue
         args, bargs = mk(dt), mk_bwd(dt)
-        saved = dict(MS.REGS_MAX_F)
-        MS.REGS_MAX_F[dt] = 0                   # every F on the shared route
-        try:
+        with shared_route(dt):
             t1 = cuda_time(lambda: MS.matern_solve_e0(*args), 3)
             t5 = cuda_time(lambda: MS.matern_solve_e0_bwd(*bargs), 3)
-        finally:
-            MS.REGS_MAX_F.update(saved)
         name = str(dt).split(".")[-1]
         for chk, t in ((h1, t1), (h5, t5)):
             row = next(r for r in chk.rows
@@ -990,6 +1000,145 @@ def gen_edge_phase(dev, seed, n=1001):
     non_spd_check(dev, seed, n, GEN_COVPARMS, "general H1/H5")
 
 
+# The general instances' pair list on the shared-memory route (csrc/
+# matern_solve.cu ``build_pair_list``) at F = 33, 41 and each dtype's
+# largest F (float32's smaller F forced onto the shared route): batches
+# whose pairs all lie at s <= 3, all above it, or on both sides (the range
+# a third of the median pair distance, so nearly every chunk of the column
+# walk held both), the last also with GEN_LIST_DROP of the slots invalid
+GEN_LIST_FS = (33, 41)
+GEN_LIST_DROP = 0.3
+
+
+def _pair_dists(locs, NN, valid):
+    """Distances of the points' valid off-diagonal pairs at distance > 0:
+    the pairs the general instances list."""
+    il, jl = np.tril_indices(NN.shape[1], -1)
+    pts = locs[NN]
+    dist = np.linalg.norm(pts[:, il] - pts[:, jl], axis=-1)
+    return dist[valid[:, il] & valid[:, jl] & (dist > 0)]
+
+
+def gen_counts(launch, dev):
+    """The engagement counts (``MS.STATS_FIELDS``) that ``launch(stats)``,
+    one call of a general instance on the shared-memory route, adds."""
+    from gpvecchia_torch.kernels import matern_solve as MS
+    stats = torch.zeros(len(MS.STATS_FIELDS), dtype=torch.int64, device=dev)
+    launch(stats)
+    return dict(zip(MS.STATS_FIELDS, stats.tolist()))
+
+
+def gen_list_edge_phase(dev, seed, n=1001):
+    """The general H1 and H5 on the shared-memory route against their plain
+    versions (``gen_run``, not timed) on the batches above, with each
+    launch's counts held to the host's: every listed pair once, none on the
+    branch a batch does not reach; then a batch with one matrix not SPD at
+    those F."""
+    from gpvecchia_torch.kernels import matern_solve as MS
+    h1g = KernelCheck("matern_solve_e0[general] list")
+    h5g = KernelCheck("matern_solve_e0_bwd[general] list")
+    rng = np.random.default_rng(seed)
+    fs = set()
+    for dt in (torch.float64, torch.float32):
+        for F in GEN_LIST_FS + (MS.max_neighbors(2, dt),):
+            fs.add(F)
+            locs, NN, valid, resp = morton_points(n, F, seed + F)
+            dist = _pair_dists(locs, NN, valid)
+            drop = valid & (rng.random(size=valid.shape) < GEN_LIST_DROP)
+            drop[:, 0] = False
+            for case, rho, v in (
+                    ("straddle", np.median(dist) / 3, valid),
+                    ("below 3", dist.max() / 2.9, valid),
+                    ("above 3", dist.min() / 3.1, valid),
+                    ("invalid slots", np.median(dist) / 3, valid & ~drop)):
+                label = f"n={n} F={F} {case}"
+                cp = (1.0, float(rho), 0.8)
+                with shared_route(dt):
+                    gen_run(h1g, h5g, locs, NN, v, resp & v, cp, label,
+                            False, dev, dtypes=(dt,), timed=False)
+                    args = _h15_inputs(locs, NN, v, resp & v,
+                                       np.full(len(locs), NUGGET), dev,
+                                       cp)(dt)
+                    x = MS.matern_solve_e0_plain(*args)
+                    counts = [gen_counts(lambda st: MS._launch(
+                        *args, stats=st), dev), gen_counts(
+                            lambda st: MS._launch_bwd(
+                                *args, x, torch.zeros_like(x), stats=st), dev)]
+                s = _pair_dists(locs, NN, v) / rho
+                want = dict(temme_pairs=int((s <= 3).sum()),
+                            cf2_pairs=int((s > 3).sum()))
+                for c in counts:
+                    got = {k: c[k] for k in want}
+                    empty = {"below 3": "cf2_pairs",
+                             "above 3": "temme_pairs"}.get(case)
+                    if c["temme_pairs"] + c["cf2_pairs"] != len(s) or (
+                            empty and got[empty]) or c["points"] != n:
+                        raise AssertionError(f"general list {label} {dt}: "
+                                             f"counts {c}, host {want}")
+                log(f"  general list {label} {str(dt)[6:]}: {want} (host), "
+                    f"kernel counts {counts[0]}")
+    with shared_route(torch.float32):
+        non_spd_check(dev, seed, n, GEN_COVPARMS, "general H1/H5 list",
+                      tuple(sorted(fs)))
+
+
+# Float64, on the shared-memory route: the general H1 and H5 on the rows of
+# an SGV and an MRA spec (at m = 40 the main path's shape) at these ranges
+# (the mle cells' box), smoothness 0.8, with their engagement counts
+GEN_ENGAGE_RANGES = (0.05, 0.1, 0.2)
+
+
+def gen_engagement(specs, dev, seed):
+    """For each (label, spec): the share of listed pairs on CF2's branch,
+    the lanes busy in a warp pass of the pair list against the column
+    walk's over the same pairs, the list's passes that ran both branches,
+    and H1's and H5's ms (median of 3), H5 with a normal cotangent; both
+    launches' counts must agree.  Returns the rows."""
+    from gpvecchia_torch.kernels import matern_solve as MS
+    from gpvecchia_torch.plan import get_plan
+    dt = torch.float64
+    rows = []
+    for label, spec in specs:
+        plan = get_plan(spec)
+        args = (torch.as_tensor(plan.locs, dtype=dt, device=dev),
+                torch.as_tensor(plan.NN, device=dev),
+                torch.as_tensor(plan.valid, device=dev),
+                torch.as_tensor(plan.valid & ~plan.cond, device=dev),
+                torch.full((plan.n_all,), NUGGET, dtype=dt, device=dev))
+        g = torch.Generator(device=dev).manual_seed(seed)
+        xbar = torch.randn(plan.NN.shape, generator=g, dtype=dt, device=dev)
+        for rho in GEN_ENGAGE_RANGES:
+            cp = torch.tensor((1.0, rho, 0.8), dtype=torch.float64)
+            with shared_route(dt):
+                x = MS._launch(*args, cp)
+                fwd = gen_counts(lambda st: MS._launch(*args, cp, stats=st),
+                                 dev)
+                bwd = gen_counts(lambda st: MS._launch_bwd(
+                    *args, cp, x, xbar, stats=st), dev)
+                ms1 = cuda_time(lambda: MS._launch(*args, cp), 3)
+                ms5 = cuda_time(lambda: MS._launch_bwd(*args, cp, x, xbar), 3)
+            if fwd != bwd:
+                raise AssertionError(f"{label}: H1 counts {fwd}, H5 {bwd}")
+            pairs = fwd["temme_pairs"] + fwd["cf2_pairs"]
+            row = dict(spec=label, F=plan.NN.shape[1], range=rho,
+                       pairs_per_point=pairs / fwd["points"],
+                       cf2_share=fwd["cf2_pairs"] / pairs,
+                       list_busy=pairs / (32 * fwd["list_passes"]),
+                       walk_busy=pairs / (32 * fwd["column_passes"]),
+                       mixed_share=fwd["mixed_passes"] / fwd["list_passes"],
+                       h1_ms=ms1, h5_ms=ms5, counts=fwd)
+            rows.append(row)
+            log(f"  general pair pass {label} F={row['F']} range {rho}: "
+                f"{row['pairs_per_point']:.1f} pairs a point, "
+                f"{100 * row['cf2_share']:.2f} % on CF2; lanes busy "
+                f"{100 * row['list_busy']:.1f} % (list) vs "
+                f"{100 * row['walk_busy']:.1f} % (column walk); "
+                f"{100 * row['mixed_share']:.2f} % of list passes on both "
+                f"branches; H1 {ms1:.2f} ms, H5 {ms5:.2f} ms")
+        del args, xbar, x
+    return rows
+
+
 def h8_edge_phase(dev, seed, n=1001):
     """H8 solve_e0 and solve_e0_bwd at the edge shapes of both routes, on
     random SPD packed matrices (G G^T / F + I in float64; the float32
@@ -1112,15 +1261,17 @@ def padding_check(dev, seed, n, covparms, name):
         f"slots, f64 and f32, covparms {covparms}")
 
 
-def non_spd_check(dev, seed, n, covparms, name):
+def non_spd_check(dev, seed, n, covparms, name, fs=(41, 72)):
     """A batch in which one point's conditioning matrix is not positive
     definite (a response slot's nugget of -2 sig2 that enters no other row,
     so that pivot is negative exactly): NaN or Inf in that point's row
-    only, every other row held to the plain version (F = 41 on the register
-    route, 72 on the shared-memory route)."""
+    only, every other row held to the plain version, at each F of ``fs``
+    (by default F = 41, on the register route in float32, and 72 on the
+    shared-memory route).  The reference is the float64 plain version,
+    also at an F above float64's bound."""
     from gpvecchia_torch.kernels import matern_solve as MS
     sig2 = covparms[0]
-    for F in (41, 72):
+    for F in fs:
         locs, NN, valid, resp = morton_points(n, F, seed + 2 * F)
         p0, s0 = n // 2, 5
         q = NN[p0, s0]
@@ -1132,24 +1283,25 @@ def non_spd_check(dev, seed, n, covparms, name):
         rows = np.arange(n) != p0
         ref = None
         for dt in (torch.float64, torch.float32):
-            if F > MS.max_neighbors(2, dt):
-                continue
             args = _h15_inputs(locs, NN, valid, resp, nug, dev, covparms)(dt)
-            x_k = MS._launch(*args)
             x_p = MS.matern_solve_e0_plain(*args)
             xb = torch.as_tensor(xbar, dtype=dt, device=dev)
-            dpar_k, dslot_k = MS._launch_bwd(*args, x_p, xb)
             dpar_p, dslot_p = MS.matern_solve_e0_bwd_plain(*args, x_p, xb)
-            torch.cuda.synchronize()
             # d/dnu (the general Matern's third column of dpar) on its own
             # scale; the general Matern's float32 floors (see
             # GEN_DNU_F64_REL)
-            outs = [(x_k, x_p), (dpar_k[:, :2], dpar_p[:, :2]),
-                    (dslot_k, dslot_p), (dpar_k[:, 2:], dpar_p[:, 2:])]
+            plain = [x_p, dpar_p[:, :2], dslot_p, dpar_p[:, 2:]]
+            if ref is None:     # float64's plain version, also at an F
+                ref = [p.double() for p in plain]   # its kernels refuse
+            if F > MS.max_neighbors(2, dt):
+                continue
+            x_k = MS._launch(*args)
+            dpar_k, dslot_k = MS._launch_bwd(*args, x_p, xb)
+            torch.cuda.synchronize()
+            outs = list(zip([x_k, dpar_k[:, :2], dslot_k, dpar_k[:, 2:]],
+                            plain))
             floors = ((None, GEN_F32_PAIR, GEN_F32_NUG, GEN_F32_DNU)
                       if dpar_k.shape[1] == 3 else (None,) * 4)
-            if ref is None:
-                ref = [p.double() for _, p in outs]
             for i, ((k, p), r) in enumerate(zip(outs, ref)):
                 if not k.numel():
                     continue
@@ -1167,8 +1319,8 @@ def non_spd_check(dev, seed, n, covparms, name):
                     raise AssertionError(f"{name} F={F} {dt}: rows beside "
                                          f"the non-SPD one: {held:.3e} > "
                                          f"{tol:.3e}")
-    log(f"  {name} with one matrix not SPD (F=41 registers, F=72 shared): "
-        f"NaN/Inf in its row only, the other {n - 1} rows held, f64 and f32")
+    log(f"  {name} with one matrix not SPD (F = {fs}): NaN/Inf in its row "
+        f"only, the other {n - 1} rows held, f64 and f32")
 
 
 def kernel_phase(spec, mf, seed, dev):
@@ -1216,6 +1368,7 @@ def kernel_phase(spec, mf, seed, dev):
                 plain_reps=1 if big else 3)
     del inputs
     gen_edge_phase(dev, seed)
+    gen_list_edge_phase(dev, seed)
 
     # ---- H8 solve_e0 and solve_e0_bwd at the general path's shape: the
     # packed smoothness-0.8 covariances of the first row chunk ----
@@ -3990,6 +4143,12 @@ def main():
                          "shapes and both kernels at F = 11, 21, 41 and 72 "
                          "on 1e6 Z-ordered points, and nothing else; prints "
                          "no final device line")
+    ap.add_argument("--only-general", action="store_true",
+                    help="a tool for work on the general H1 and H5: build, "
+                         "their edge shapes and pair-list checks, then the "
+                         "SGV and MRA specs of --n and --m and the pair "
+                         "pass's counts and ms on their rows, and nothing "
+                         "else; prints no final device line")
     args = ap.parse_args()
 
     if not torch.cuda.is_available():
@@ -4051,6 +4210,17 @@ def main():
         print(json.dumps({"h15": {"matern_solve_e0": h1.rows,
                                   "matern_solve_e0_bwd": h5.rows},
                           "smi": smi}))
+        return
+
+    if args.only_general:
+        log("the general H1 and H5 alone (not a pass of this script):")
+        gen_edge_phase(dev, args.seed)
+        gen_list_edge_phase(dev, args.seed)
+        locs = np.random.default_rng(args.seed).uniform(size=(args.n, 2))
+        specs = (("SGV", gt.vecchia_specify(locs, m=args.m, cond_yz="SGV")),
+                 ("MRA", mra_spec(locs, args.m)[0]))
+        rows = gen_engagement(specs, dev, args.seed)
+        print(json.dumps({"pair_pass": rows, "smi": smi}))
         return
 
     # ---- host: spec + plan ----
@@ -4212,6 +4382,9 @@ def main():
     log("MRA phase (bench.py cfg5):")
     spec_m, mra = mra_phase(locs, z, args.m, big, counters, bwd_counters,
                             dev, args.seed)
+    log("general pair pass on the shared-memory route (SGV and MRA rows):")
+    pair_pass = gen_engagement((("SGV", spec), ("MRA", spec_m)), dev,
+                               args.seed)
     sel = None
     if not big:
         log("selected-layout phase (MRA spec):")
@@ -4289,6 +4462,7 @@ def main():
     gen_json = {k: (dict(v, grad=_jsonable(v["grad"]))
                     if isinstance(v, dict) and "grad" in v else v)
                 for k, v in gen.items()}
+    gen_json["pair_pass"] = pair_pass
     bench_names = dict(
         pred_mean_ms=pred["spec"]["float32"]["pred_mean_ms"],
         pred_selinv_ms=pred["spec"]["float32"]["pred_selinv_ms"],

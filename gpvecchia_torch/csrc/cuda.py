@@ -35,11 +35,12 @@ _P, _I, _LL, _D = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, \
     ctypes.c_double
 _SIGNATURES = {
     # ..., sig2, rho, nu_idx, gen (the general Matern's constants or
-    # NULL), outputs ...
+    # NULL), outputs ..., on the shared-memory route the general instances'
+    # engagement counts (or NULL)
     "gpv_matern_solve_e0": [_P, _I, _P, _P, _P, _P, _I, _I, _D, _D, _I, _P,
-                            _P, _I, _P],
+                            _P, _P, _I, _P],
     "gpv_matern_solve_e0_bwd": [_P, _I, _P, _P, _P, _P, _I, _I, _D, _D, _I,
-                                _P, _P, _P, _P, _P, _I, _P],
+                                _P, _P, _P, _P, _P, _P, _I, _P],
     "gpv_matern_solve_e0_regs": [_P, _I, _P, _P, _P, _P, _I, _I, _D, _D, _I,
                                  _P, _P, _P],
     "gpv_matern_solve_e0_bwd_regs": [_P, _I, _P, _P, _P, _P, _I, _I, _D, _D,

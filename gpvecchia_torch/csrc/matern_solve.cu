@@ -47,9 +47,11 @@
 //    matrix in shared memory, column-major, lanes over rows, so every column
 //    op is a conflict-free strided sweep; right-looking factorization, the
 //    substitutions reuse the factor in place.  Shared memory per warp is
-//    (F*F + F*d + 3F) values for H1 and (F*F + F*d + 4F) for H5, so the
-//    wrapper raises for F above the 48 KB per block bound it states, on both
-//    routes.
+//    (F*F + F*d + 3F) values for H1 and (F*F + F*d + 4F) for H5 at the
+//    closed forms, so the wrapper raises for F above the 48 KB per block
+//    bound it states, on both routes; the general instances add their pair
+//    list and H5's two derivative triangles (gen_warp_bytes), with dynamic
+//    shared memory above 48 KB a block.
 // Both routes take the covariance kind as a template parameter
 // (matern_common.cuh): Closed, the closed forms at smoothness 0.5, 1.5 and
 // 2.5, and General, the built-in Matern at any other smoothness
@@ -62,9 +64,18 @@
 // (computed once a launch on the host, one kernel parameter), and the
 // backward adds dC/dnu from log K at nu + h and |nu - h| to the
 // contraction (a third partial sum a point).  No (n, P) covariance is
-// written.  What bounds General: the pairs' arithmetic, ~500 instructions
-// a pair for log K on Temme's branch (40 terms, 5 transcendentals), ~3x
-// that in the backward; the factor's pivot chain stays as above.
+// written.  What bounds General: the pairs' log K, whose cost depends on
+// s: Temme's series at s <= 3 (5-16 terms at nu = 0.8, of 40, besides ~5
+// transcendentals) or Steed's CF2 above (up to 64 steps of three
+// divisions, fewer as s grows), and a warp pays for each branch any of its
+// lanes takes, to its slowest lane.  So on the shared-memory route the
+// general instances evaluate a per-point list of the pairs, the lanes
+// spread evenly over it and the list sorted by branch and by s (the
+// general pair pass below): only one warp pass a point runs both branches
+// and a pass's lanes need about the same terms.  H5 evaluates each pair
+// once (log K at nu with the climb's next ratio, nu + h, |nu - h|: three a
+// pair) and keeps g, dg/ds and dg/dnu beside C for a contraction without
+// transcendentals; the factor's pivot chain stays as above.
 //
 // Coordinates are gathered inside the kernels, so no (n, F(F+1)/2) distance
 // array exists in device memory.  A non-SPD pivot is not clamped and the
@@ -95,6 +106,7 @@
 #include <stdint.h>
 
 #include "matern_common.cuh"
+#include "matern_regs.cuh"  // tri, tri_row: the register route's pair map
 
 namespace {
 
@@ -104,20 +116,19 @@ using gpv::General;
 using gpv::gen_params;
 using gpv::matern_corr;
 using gpv::pair_dist;
+using gpv::tri;
+using gpv::tri_row;
 using gpv::warp_sum;
 
-// Gather point p's coordinates, validity and diagonal nugget adds into the
-// warp's shared memory, then fill the lower triangle of C (column-major):
-// response neighbors carry their nugget on the diagonal, invalid slots are
-// identity-extended.
-template <typename T, typename Cov>
-__device__ void build_cov(const T* __restrict__ locs, int d,
-                          const int* __restrict__ NN,
-                          const uint8_t* __restrict__ valid,
-                          const uint8_t* __restrict__ resp,
-                          const T* __restrict__ nug_point, long p, int F,
-                          T sig2, T rho, const Cov& cov, T* C, T* pts, T* dg,
-                          T* vf, int lane) {
+// Gather point p's coordinates, validity (1/0) and diagonal nugget adds
+// into the warp's shared memory.
+template <typename T>
+__device__ void gather(const T* __restrict__ locs, int d,
+                       const int* __restrict__ NN,
+                       const uint8_t* __restrict__ valid,
+                       const uint8_t* __restrict__ resp,
+                       const T* __restrict__ nug_point, long p, int F, T* pts,
+                       T* dg, T* vf, int lane) {
   for (int i = lane; i < F; i += 32) {
     const int q = NN[p * F + i];
     const bool v = valid[p * F + i] != 0;
@@ -126,6 +137,20 @@ __device__ void build_cov(const T* __restrict__ locs, int d,
     dg[i] = (v && resp[p * F + i] != 0) ? nug_point[q] : T(0);
   }
   __syncwarp();
+}
+
+// Gather, then fill the lower triangle of C (column-major) a column at a
+// time: response neighbors carry their nugget on the diagonal, invalid
+// slots are identity-extended.
+template <typename T, typename Cov>
+__device__ void build_cov(const T* __restrict__ locs, int d,
+                          const int* __restrict__ NN,
+                          const uint8_t* __restrict__ valid,
+                          const uint8_t* __restrict__ resp,
+                          const T* __restrict__ nug_point, long p, int F,
+                          T sig2, T rho, const Cov& cov, T* C, T* pts, T* dg,
+                          T* vf, int lane) {
+  gather(locs, d, NN, valid, resp, nug_point, p, F, pts, dg, vf, lane);
   for (int j = 0; j < F; ++j) {
     for (int i = j + lane; i < F; i += 32) {
       T val;
@@ -179,6 +204,212 @@ __device__ void solve_inplace(const T* C, const T* dg, T* b, int F,
   }
 }
 
+// ------------------------------------------------ the general pair pass
+// The general Matern's pairs cost a log K_nu each, whose cost depends on s
+// = dist / rho: Temme's series (up to 40 terms, more as s grows to 3) or
+// Steed's CF2 above s = 3 (up to 64 steps, fewer as s grows).  A warp pays
+// for every branch any of its lanes takes, each to its slowest lane, so
+// the general instances do not walk C a column at a time.  Per point, with
+// the lanes spread evenly over the strict lower triangle (pair k = (i, j),
+// i > j, row by row): the diagonal and the pairs outside the list (an
+// invalid slot, or dist 0: g = 1, dg/ds = dg/dnu = 0) get their entries at
+// once, each listed pair's s goes into its own slot of C, and a counting
+// sort by bin (a __match_any_sync a chunk of 32 pairs, twice) lists the
+// pairs: Temme's bins of s first, then CF2's, each ordered by s.  The lanes
+// then take the list 32 at a time, so only the chunk at the boundary runs
+// both branches and a chunk's lanes need about the same terms or steps.
+// Each pair's log K_nu arithmetic is log_kv's, unchanged.
+
+constexpr unsigned FULL = 0xffffffffu;
+constexpr int NBIN = 32;    // 16 bins of s <= 3 (and NaN), 16 above 3
+static_assert(NBIN == 32, "the bins' scan takes one lane a bin");
+
+__host__ __device__ constexpr size_t up16(size_t b) {
+  return (b + 15) / 16 * 16;
+}
+
+// values a warp for the general instances beside the list: H1's C, pts, dg,
+// vf, b; H5's C, dg/ds and dg/dnu triangles, pts, dg, vf, w, x
+__host__ __device__ constexpr size_t gen_words(int F, int d, bool bwd) {
+  return (size_t)F * F + (size_t)F * d + (bwd ? 4 : 3) * (size_t)F +
+         (bwd ? (size_t)F * (F - 1) : 0);
+}
+
+// bytes a warp: the values, then the list (a membership bit a pair, the
+// bins' counts, a 16-bit index a pair), each part 16-byte aligned;
+// kernels/matern_solve.py `_smem_per_warp(..., general=True)` counts the
+// same
+template <typename T>
+__host__ __device__ constexpr size_t gen_warp_bytes(int F, int d, bool bwd) {
+  return up16(gen_words(F, d, bwd) * sizeof(T)) +
+         up16(((size_t)(F * (F - 1) / 2 + 31) / 32 + NBIN) * 4) +
+         up16((size_t)F * (F - 1));
+}
+
+struct PairList {
+  unsigned* mask;     // a bit a pair: listed
+  int* cnt;           // the bins' counts, then each bin's next slot
+  uint16_t* idx;      // the listed pairs' k, bin by bin
+};
+
+template <typename T>
+__device__ __forceinline__ PairList pair_list(unsigned char* base, int F,
+                                              int d, bool bwd) {
+  PairList L;
+  L.mask = reinterpret_cast<unsigned*>(base +
+                                       up16(gen_words(F, d, bwd) * sizeof(T)));
+  L.cnt = reinterpret_cast<int*>(L.mask + (F * (F - 1) / 2 + 31) / 32);
+  L.idx = reinterpret_cast<uint16_t*>(
+      reinterpret_cast<unsigned char*>(L.mask) +
+      up16(((size_t)(F * (F - 1) / 2 + 31) / 32 + NBIN) * 4));
+  return L;
+}
+
+// pair k of the strict lower triangle, row by row
+__device__ __forceinline__ void pair_ij(int k, int& i, int& j) {
+  i = tri_row(k) + 1;
+  j = k - tri(i - 1);
+}
+
+// the bin of s: the branch log_kv takes (CF2 above 3), then s in steps of
+// 3/16 below 3 and of a quarter octave above it
+template <typename T>
+__device__ __forceinline__ int pair_bin(T s) {
+  const float f = (float)s;
+  if (s > T(3))
+    return NBIN / 2 +
+           min(max((int)(4.0f * __log2f(f * (1.0f / 3.0f))), 0), NBIN / 2 - 1);
+  return min(max((int)(f * (NBIN / 2 / 3.0f)), 0), NBIN / 2 - 1);
+}
+
+// C's diagonal and the entries of the pairs outside the list, s in the
+// listed pairs' slots of C, then the list; returns its length and sets
+// n_temme, the length of its first part.  GRAD (H5): the unlisted valid
+// pairs' g (C's upper triangle), dg/ds (Gd) and dg/dnu (Gn) too
+template <typename T, bool GRAD>
+__device__ int build_pair_list(const T* pts, const T* vf, const T* dg, int d,
+                               int F, T sig2, T rho, T* C, T* Gd, T* Gn,
+                               PairList L, int lane, int& n_temme) {
+  const int P = F * (F - 1) / 2;
+  for (int i = lane; i < F; i += 32)
+    C[i * F + i] = vf[i] != T(0) ? sig2 + dg[i] : T(1);
+  L.cnt[lane] = 0;
+  __syncwarp();
+  for (int k0 = 0; k0 < P; k0 += 32) {
+    const int k = k0 + lane;
+    int b = NBIN;                                // not listed
+    if (k < P) {
+      int i, j;
+      pair_ij(k, i, j);
+      T* c = C + j * F + i;
+      if (vf[i] != T(0) && vf[j] != T(0)) {
+        const T dist = pair_dist(pts, i, j, d);
+        if (dist > T(0)) {
+          *c = dist / rho;
+          b = pair_bin(*c);
+        } else {
+          *c = sig2;
+          if (GRAD) {
+            C[i * F + j] = T(1);
+            Gd[k] = T(0);
+            Gn[k] = T(0);
+          }
+        }
+      } else {
+        *c = T(0);                               // identity-extended
+      }
+    }
+    const unsigned listed = __ballot_sync(FULL, b < NBIN);
+    const unsigned peers = __match_any_sync(FULL, b);
+    if (lane == 0) L.mask[k0 >> 5] = listed;
+    if (b < NBIN && lane == __ffs(peers) - 1) L.cnt[b] += __popc(peers);
+    __syncwarp();
+  }
+  const int c = L.cnt[lane];                     // lane = bin
+  int incl = c;
+  for (int o = 1; o < 32; o <<= 1) {
+    const int t = __shfl_up_sync(FULL, incl, o);
+    if (lane >= o) incl += t;
+  }
+  L.cnt[lane] = incl - c;
+  n_temme = __shfl_sync(FULL, incl, NBIN / 2 - 1);
+  const int total = __shfl_sync(FULL, incl, NBIN - 1);
+  __syncwarp();
+  const unsigned below = (1u << lane) - 1u;
+  for (int k0 = 0; k0 < P; k0 += 32) {
+    const int k = k0 + lane;
+    int b = NBIN;
+    if ((L.mask[k0 >> 5] >> lane) & 1u) {
+      int i, j;
+      pair_ij(k, i, j);
+      b = pair_bin(C[j * F + i]);
+    }
+    const unsigned peers = __match_any_sync(FULL, b);
+    if (b < NBIN) L.idx[L.cnt[b] + __popc(peers & below)] = (uint16_t)k;
+    __syncwarp();
+    if (b < NBIN && lane == __ffs(peers) - 1) L.cnt[b] += __popc(peers);
+    __syncwarp();
+  }
+  return total;
+}
+
+// the engagement counts a launch adds to its stats, if given
+// (kernels/matern_solve.py STATS_FIELDS): points, pairs on Temme's branch,
+// pairs on CF2's, the list's warp passes, the column walk's warp passes
+// over the same points (i >= j, a column a time), list passes that ran
+// both branches
+__device__ __forceinline__ void count_pairs(unsigned long long* stats, int F,
+                                            int total, int n_temme,
+                                            int lane) {
+  if (stats == nullptr || lane != 0) return;
+  int walk = 0;
+  for (int m = 1; m <= F; ++m) walk += (m + 31) / 32;
+  atomicAdd(stats, 1ull);
+  atomicAdd(stats + 1, (unsigned long long)n_temme);
+  atomicAdd(stats + 2, (unsigned long long)(total - n_temme));
+  atomicAdd(stats + 3, (unsigned long long)((total + 31) / 32));
+  atomicAdd(stats + 4, (unsigned long long)walk);
+  if (n_temme % 32 != 0 && n_temme < total) atomicAdd(stats + 5, 1ull);
+}
+
+template <typename T>
+__device__ __forceinline__ void h1_general_body(
+    const T* __restrict__ locs, int d, const int* __restrict__ NN,
+    const uint8_t* __restrict__ valid, const uint8_t* __restrict__ resp,
+    const T* __restrict__ nug_point, int n, int F, T sig2, T rho,
+    const General<T>& cov, T* __restrict__ x,
+    unsigned long long* __restrict__ stats) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  unsigned char* base = smem_raw + warp * gen_warp_bytes<T>(F, d, false);
+  T* C = reinterpret_cast<T*>(base);       // listed pairs: s, then C
+  T* pts = C + F * F;
+  T* dg = pts + F * d;
+  T* vf = dg + F;
+  T* b = vf + F;
+  const PairList L = pair_list<T>(base, F, d, false);
+  const long p = (long)blockIdx.x * (blockDim.x >> 5) + warp;
+  if (p >= n) return;                      // whole warp leaves together
+
+  for (int i = lane; i < F; i += 32) b[i] = (i == 0) ? T(1) : T(0);
+  gather(locs, d, NN, valid, resp, nug_point, p, F, pts, dg, vf, lane);
+  int n_temme;
+  const int total = build_pair_list<T, false>(
+      pts, vf, dg, d, F, sig2, rho, C, nullptr, nullptr, L, lane, n_temme);
+  for (int t = lane; t < total; t += 32) {
+    int i, j;
+    pair_ij(L.idx[t], i, j);
+    T* c = C + j * F + i;
+    *c = sig2 * cov.value(*c);
+  }
+  count_pairs(stats, F, total, n_temme, lane);
+  __syncwarp();
+  chol_inplace(C, dg, F, lane);
+  solve_inplace(C, dg, b, F, lane);
+  for (int i = lane; i < F; i += 32) x[p * F + i] = b[i];
+}
+
 template <typename T, typename Cov>
 __device__ __forceinline__ void h1_shared_body(
     const T* __restrict__ locs, int d, const int* __restrict__ NN,
@@ -220,12 +451,12 @@ __global__ void matern_solve_e0_kernel(GPV_SH_PARAMS, int nu_idx,
 template <typename T>
 __global__ void matern_solve_e0_gen_kernel(GPV_SH_PARAMS,
                                            const GenParams<T> gp,
-                                           T* __restrict__ x) {
-  h1_shared_body(GPV_SH_ARGS, General<T>{gp}, x);
+                                           T* __restrict__ x,
+                                           unsigned long long* stats) {
+  h1_general_body(GPV_SH_ARGS, General<T>{gp}, x, stats);
 }
 
-// NPAR = 2 partial sums a point (sig2, rho) at the closed forms, 3 (with
-// nu) for the general Matern
+// the closed forms: two partial sums a point (sig2, rho)
 template <typename T, typename Cov>
 __device__ __forceinline__ void h5_shared_body(
     const T* __restrict__ locs, int d, const int* __restrict__ NN,
@@ -233,8 +464,6 @@ __device__ __forceinline__ void h5_shared_body(
     const T* __restrict__ nug_point, int n, int F, T sig2, T rho,
     const Cov& cov, const T* __restrict__ x, const T* __restrict__ xbar,
     double* __restrict__ dpar, T* __restrict__ dslot) {
-  constexpr bool GEN = Cov::kGeneral;
-  constexpr int NPAR = GEN ? 3 : 2;
   extern __shared__ __align__(16) unsigned char smem_raw[];
   T* smem = reinterpret_cast<T*>(smem_raw);
   const int lane = threadIdx.x & 31;
@@ -257,10 +486,10 @@ __device__ __forceinline__ void h5_shared_body(
   chol_inplace(C, dg, F, lane);
   solve_inplace(C, dg, w, F, lane);
 
-  // K2's packed cotangent, contracted pair by pair (i >= j) with dC/dsig2,
-  // dC/drho (and dC/dnu), recomputed here; the partial sums are kept in
-  // double, so a float32 run loses no digits in them
-  double a_sig2 = 0.0, a_rho = 0.0, a_nu = 0.0;
+  // K2's packed cotangent, contracted pair by pair (i >= j) with dC/dsig2
+  // and dC/drho, recomputed here; the partial sums are kept in double, so a
+  // float32 run loses no digits in them
+  double a_sig2 = 0.0, a_rho = 0.0;
   for (int j = 0; j < F; ++j) {
     for (int i = j + lane; i < F; i += 32) {
       if (vf[i] == T(0) || vf[j] == T(0)) continue;  // identity-extended
@@ -270,7 +499,6 @@ __device__ __forceinline__ void h5_shared_body(
       const T corr = matern_corr(cov, dist, rho, &dgds, &dgdnu);
       a_sig2 += (double)(g * corr);
       a_rho += (double)(g * sig2 * dgds * (-(dist / rho) / rho));
-      if (GEN) a_nu += (double)(g * sig2 * dgdnu);
     }
   }
   for (int j = lane; j < F; j += 32)
@@ -278,11 +506,99 @@ __device__ __forceinline__ void h5_shared_body(
                            ? -w[j] * xs[j] : T(0);
   a_sig2 = warp_sum(a_sig2);
   a_rho = warp_sum(a_rho);
-  if (GEN) a_nu = warp_sum(a_nu);
   if (lane == 0) {
-    dpar[p * NPAR] = a_sig2;
-    dpar[p * NPAR + 1] = a_rho;
-    if (GEN) dpar[p * NPAR + 2] = a_nu;
+    dpar[p * 2] = a_sig2;
+    dpar[p * 2 + 1] = a_rho;
+  }
+}
+
+// The general Matern's backward: one pass over the list evaluates each
+// pair's g, dg/ds and dg/dnu (log K_nu at nu, with the climb's next ratio,
+// nu + h and |nu - h|) and keeps them beside C, g in C's upper triangle;
+// the contraction then reads them, with the lanes spread evenly over the
+// packed triangle, and runs no transcendental.  Three partial sums a point
+// (sig2, rho, nu).
+template <typename T>
+__device__ __forceinline__ void h5_general_body(
+    const T* __restrict__ locs, int d, const int* __restrict__ NN,
+    const uint8_t* __restrict__ valid, const uint8_t* __restrict__ resp,
+    const T* __restrict__ nug_point, int n, int F, T sig2, T rho,
+    const General<T>& cov, const T* __restrict__ x,
+    const T* __restrict__ xbar, double* __restrict__ dpar,
+    T* __restrict__ dslot, unsigned long long* __restrict__ stats) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  unsigned char* base = smem_raw + warp * gen_warp_bytes<T>(F, d, true);
+  const int P = F * (F - 1) / 2;
+  T* C = reinterpret_cast<T*>(base);       // lower: s, then C; upper: g
+  T* Gd = C + F * F;                       // dg/ds, pair k at k
+  T* Gn = Gd + P;                          // dg/dnu
+  T* pts = Gn + P;
+  T* dg = pts + F * d;
+  T* vf = dg + F;
+  T* w = vf + F;                           // xbar, then w = C^{-1} xbar
+  T* xs = w + F;                           // the forward's x
+  const PairList L = pair_list<T>(base, F, d, true);
+  const long p = (long)blockIdx.x * (blockDim.x >> 5) + warp;
+  if (p >= n) return;
+
+  for (int i = lane; i < F; i += 32) {
+    w[i] = xbar[p * F + i];
+    xs[i] = x[p * F + i];
+  }
+  gather(locs, d, NN, valid, resp, nug_point, p, F, pts, dg, vf, lane);
+  int n_temme;
+  const int total = build_pair_list<T, true>(pts, vf, dg, d, F, sig2, rho,
+                                             C, Gd, Gn, L, lane, n_temme);
+  for (int t = lane; t < total; t += 32) {
+    const int k = L.idx[t];
+    int i, j;
+    pair_ij(k, i, j);
+    T dgds, dgdnu;
+    const T g = cov.grad(C[j * F + i], &dgds, &dgdnu);
+    C[j * F + i] = sig2 * g;
+    C[i * F + j] = g;
+    Gd[k] = dgds;
+    Gn[k] = dgdnu;
+  }
+  count_pairs(stats, F, total, n_temme, lane);
+  __syncwarp();
+  chol_inplace(C, dg, F, lane);
+  solve_inplace(C, dg, w, F, lane);
+
+  // K2's packed cotangent gbar[i >= j] = -(w_i x_j + w_j x_i) (-w_i x_i on
+  // the diagonal), contracted pair by pair with dC/dsig2 = g, dC/drho =
+  // sig2 g'(s) (-s / rho) and dC/dnu = sig2 dg/dnu over the valid pairs,
+  // each term as matern_corr's at dist 0 and as the build's elsewhere; the
+  // partial sums are kept in double, so a float32 run loses no digits
+  double a_sig2 = 0.0, a_rho = 0.0, a_nu = 0.0;
+  for (int q = lane; q < tri(F); q += 32) {
+    const int i = tri_row(q), j = q - tri(i);
+    if (vf[i] == T(0) || vf[j] == T(0)) continue;  // identity-extended
+    const T g = (i == j) ? -w[i] * xs[i] : -(w[i] * xs[j] + w[j] * xs[i]);
+    const T dist = pair_dist(pts, i, j, d);
+    T corr = T(1), dgds = T(0), dgdnu = T(0);
+    if (i != j) {
+      const int k = tri(i - 1) + j;
+      corr = C[i * F + j];
+      dgds = Gd[k];
+      dgdnu = Gn[k];
+    }
+    a_sig2 += (double)(g * corr);
+    a_rho += (double)(g * sig2 * dgds * (-(dist / rho) / rho));
+    a_nu += (double)(g * sig2 * dgdnu);
+  }
+  for (int j = lane; j < F; j += 32)
+    dslot[p * F + j] = (vf[j] != T(0) && resp[p * F + j] != 0)
+                           ? -w[j] * xs[j] : T(0);
+  a_sig2 = warp_sum(a_sig2);
+  a_rho = warp_sum(a_rho);
+  a_nu = warp_sum(a_nu);
+  if (lane == 0) {
+    dpar[p * 3] = a_sig2;
+    dpar[p * 3 + 1] = a_rho;
+    dpar[p * 3 + 2] = a_nu;
   }
 }
 
@@ -300,8 +616,9 @@ __global__ void matern_solve_e0_bwd_kernel(GPV_SH_PARAMS, int nu_idx,
 template <typename T>
 __global__ void matern_solve_e0_bwd_gen_kernel(GPV_SH_PARAMS,
                                                const GenParams<T> gp,
-                                               GPV_SH5_PARAMS) {
-  h5_shared_body(GPV_SH_ARGS, General<T>{gp}, GPV_SH5_ARGS);
+                                               GPV_SH5_PARAMS,
+                                               unsigned long long* stats) {
+  h5_general_body(GPV_SH_ARGS, General<T>{gp}, GPV_SH5_ARGS, stats);
 }
 
 // packed row j of the upper triangle is column j of the lower one
@@ -366,27 +683,41 @@ __global__ void solve_e0_bwd_kernel(const T* __restrict__ Cp, int n, int F,
                                  : -(w[i] * xs[j] + w[j] * xs[i]);
 }
 
-// gen: null at a closed form (nu_idx), else the general Matern's
-// host constants (kernels/matern_solve.py `general_params`)
+// a block of the general instances may take more than 48 KB: the larger
+// dynamic size is allowed first
+template <typename K>
+int allow_smem(K kernel, size_t smem) {
+  if (smem <= 48 * 1024) return 0;
+  return (int)cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+}
+
+// gen: null at a closed form (nu_idx), else the general Matern's host
+// constants (kernels/matern_solve.py `general_params`); stats: null, or
+// STATS counts the general instances add to (count_pairs)
 template <typename T>
 int launch_matern_solve_e0(const T* locs, int d, const int* NN,
                            const uint8_t* valid, const uint8_t* resp,
                            const T* nug_point, int n, int F, double sig2,
                            double rho, int nu_idx, const double* gen, T* x,
-                           int warps_per_block, cudaStream_t stream) {
+                           unsigned long long* stats, int warps_per_block,
+                           cudaStream_t stream) {
   if (n == 0) return 0;
-  const size_t smem =
-      (size_t)warps_per_block * (F * F + F * d + 3 * F) * sizeof(T);
   const int blocks = (n + warps_per_block - 1) / warps_per_block;
-  if (gen)
+  if (gen) {
+    const size_t smem = warps_per_block * gen_warp_bytes<T>(F, d, false);
+    const int rc = allow_smem(matern_solve_e0_gen_kernel<T>, smem);
+    if (rc != 0) return rc;
     matern_solve_e0_gen_kernel<T>
         <<<blocks, 32 * warps_per_block, smem, stream>>>(
             locs, d, NN, valid, resp, nug_point, n, F, (T)sig2, (T)rho,
-            gen_params<T>(gen), x);
-  else
-    matern_solve_e0_kernel<T><<<blocks, 32 * warps_per_block, smem, stream>>>(
-        locs, d, NN, valid, resp, nug_point, n, F, (T)sig2, (T)rho, nu_idx,
-        x);
+            gen_params<T>(gen), x, stats);
+    return (int)cudaGetLastError();
+  }
+  const size_t smem =
+      (size_t)warps_per_block * (F * F + F * d + 3 * F) * sizeof(T);
+  matern_solve_e0_kernel<T><<<blocks, 32 * warps_per_block, smem, stream>>>(
+      locs, d, NN, valid, resp, nug_point, n, F, (T)sig2, (T)rho, nu_idx, x);
   return (int)cudaGetLastError();
 }
 
@@ -396,22 +727,26 @@ int launch_matern_solve_e0_bwd(const T* locs, int d, const int* NN,
                                const T* nug_point, int n, int F, double sig2,
                                double rho, int nu_idx, const double* gen,
                                const T* x, const T* xbar, double* dpar,
-                               T* dslot, int warps_per_block,
-                               cudaStream_t stream) {
+                               T* dslot, unsigned long long* stats,
+                               int warps_per_block, cudaStream_t stream) {
   if (n == 0) return 0;
-  const size_t smem =
-      (size_t)warps_per_block * (F * F + F * d + 4 * F) * sizeof(T);
   const int blocks = (n + warps_per_block - 1) / warps_per_block;
-  if (gen)
+  if (gen) {
+    const size_t smem = warps_per_block * gen_warp_bytes<T>(F, d, true);
+    const int rc = allow_smem(matern_solve_e0_bwd_gen_kernel<T>, smem);
+    if (rc != 0) return rc;
     matern_solve_e0_bwd_gen_kernel<T>
         <<<blocks, 32 * warps_per_block, smem, stream>>>(
             locs, d, NN, valid, resp, nug_point, n, F, (T)sig2, (T)rho,
-            gen_params<T>(gen), x, xbar, dpar, dslot);
-  else
-    matern_solve_e0_bwd_kernel<T>
-        <<<blocks, 32 * warps_per_block, smem, stream>>>(
-            locs, d, NN, valid, resp, nug_point, n, F, (T)sig2, (T)rho,
-            nu_idx, x, xbar, dpar, dslot);
+            gen_params<T>(gen), x, xbar, dpar, dslot, stats);
+    return (int)cudaGetLastError();
+  }
+  const size_t smem =
+      (size_t)warps_per_block * (F * F + F * d + 4 * F) * sizeof(T);
+  matern_solve_e0_bwd_kernel<T>
+      <<<blocks, 32 * warps_per_block, smem, stream>>>(
+          locs, d, NN, valid, resp, nug_point, n, F, (T)sig2, (T)rho,
+          nu_idx, x, xbar, dpar, dslot);
   return (int)cudaGetLastError();
 }
 
@@ -445,9 +780,10 @@ int gpv_matern_solve_e0_f32(const float* locs, int d, const int* NN,
                             const uint8_t* valid, const uint8_t* resp,
                             const float* nug_point, int n, int F, double sig2,
                             double rho, int nu_idx, const double* gen,
-                            float* x, int warps_per_block, void* stream) {
+                            float* x, unsigned long long* stats,
+                            int warps_per_block, void* stream) {
   return launch_matern_solve_e0<float>(locs, d, NN, valid, resp, nug_point, n,
-                                       F, sig2, rho, nu_idx, gen, x,
+                                       F, sig2, rho, nu_idx, gen, x, stats,
                                        warps_per_block, (cudaStream_t)stream);
 }
 
@@ -456,9 +792,10 @@ int gpv_matern_solve_e0_f64(const double* locs, int d, const int* NN,
                             const double* nug_point, int n, int F,
                             double sig2, double rho, int nu_idx,
                             const double* gen, double* x,
-                            int warps_per_block, void* stream) {
+                            unsigned long long* stats, int warps_per_block,
+                            void* stream) {
   return launch_matern_solve_e0<double>(locs, d, NN, valid, resp, nug_point,
-                                        n, F, sig2, rho, nu_idx, gen, x,
+                                        n, F, sig2, rho, nu_idx, gen, x, stats,
                                         warps_per_block, (cudaStream_t)stream);
 }
 
@@ -469,10 +806,11 @@ int gpv_matern_solve_e0_bwd_f32(const float* locs, int d, const int* NN,
                                 const double* gen, const float* x,
                                 const float* xbar,
                                 double* dpar, float* dslot,
+                                unsigned long long* stats,
                                 int warps_per_block, void* stream) {
   return launch_matern_solve_e0_bwd<float>(
       locs, d, NN, valid, resp, nug_point, n, F, sig2, rho, nu_idx, gen, x,
-      xbar, dpar, dslot, warps_per_block, (cudaStream_t)stream);
+      xbar, dpar, dslot, stats, warps_per_block, (cudaStream_t)stream);
 }
 
 int gpv_matern_solve_e0_bwd_f64(const double* locs, int d, const int* NN,
@@ -482,10 +820,11 @@ int gpv_matern_solve_e0_bwd_f64(const double* locs, int d, const int* NN,
                                 const double* gen, const double* x,
                                 const double* xbar,
                                 double* dpar, double* dslot,
+                                unsigned long long* stats,
                                 int warps_per_block, void* stream) {
   return launch_matern_solve_e0_bwd<double>(
       locs, d, NN, valid, resp, nug_point, n, F, sig2, rho, nu_idx, gen, x,
-      xbar, dpar, dslot, warps_per_block, (cudaStream_t)stream);
+      xbar, dpar, dslot, stats, warps_per_block, (cudaStream_t)stream);
 }
 
 int gpv_solve_e0_f32(const float* Cp, int n, int F, float* x,

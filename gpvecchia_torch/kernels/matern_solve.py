@@ -20,8 +20,16 @@ depend on nu alone, computed once a launch on the host
 (``general_params``).  This is what the JAX package computes for a general
 smoothness with ``build_cov_packed`` + K3 (``u_entries.py:296-320``) and,
 in the backward, K2 with ``covariance.py`` ``_matern_bwd``; no packed
-covariance is written.  H1 and H5 take one of two CUDA routes, by F and
-dtype alone (``route``): up to ``REGS_MAX_F`` the register route
+covariance is written.  On the shared-memory route the general instances
+evaluate each point's pairs as a list sorted by log K's branch (Temme's
+series at s <= 3, CF2 above) and by s, taken 32 at a time, so a warp
+seldom pays for both branches (``csrc/matern_solve.cu``, the general pair
+pass); H5 evaluates each pair once and keeps g, dg/ds and dg/dnu in shared
+memory for its contraction.  Their ``stats`` (``STATS_FIELDS``) count the
+pass: the branch mix and the warp passes against the column walk's.
+
+H1 and H5 take one of two CUDA routes, by F and dtype alone (``route``):
+up to ``REGS_MAX_F`` the register route
 (``csrc/matern_regs.cuh``: one warp a point, F padded with identity slots to
 a multiple of 8, each lane's rows of the matrix in registers), above it the
 shared-memory route (``csrc/matern_solve.cu``: one warp a point, the
@@ -65,8 +73,15 @@ __all__ = ["matern_solve_e0", "matern_solve_e0_plain", "matern_solve_e0_bwd",
            "max_neighbors", "general_params"]
 
 _SMEM_PER_BLOCK = 48 * 1024     # static-launch shared-memory bound
+_SMEM_OPT_IN = 232448           # a block's dynamic shared memory at most
 _MAX_WARPS = 8
 _FWD_VECS, _BWD_VECS = 3, 4     # F-vectors per warp beside C and coordinates
+_NBIN = 32                      # the general pair list's bins of s
+# what the general instances on the shared-memory route add to a launch's
+# ``stats`` (int64, on the card), a point at a time: csrc/matern_solve.cu
+# ``count_pairs``
+STATS_FIELDS = ("points", "temme_pairs", "cf2_pairs", "list_passes",
+                "column_passes", "mixed_passes")
 # H1, H5, H8 and solve_e0_bwd take the register route (csrc/matern_regs.cuh)
 # up to this F, its largest instance in csrc/matern_regs_f32.cu and _f64.cu,
 # and the shared-memory route (csrc/matern_solve.cu) above it
@@ -134,8 +149,26 @@ def _general_params(nu: float, dtype: torch.dtype) -> np.ndarray:
     return out
 
 
-def _smem_per_warp(F: int, d: int, itemsize: int, vecs: int) -> int:
-    return (F * F + F * d + vecs * F) * itemsize
+def _up16(nbytes: int) -> int:
+    return -(-nbytes // 16) * 16
+
+
+def _smem_per_warp(F: int, d: int, itemsize: int, vecs: int,
+                   general: bool = False) -> int:
+    """Shared memory a warp on the shared-memory route: the F x F matrix,
+    F x d coordinates and ``vecs`` F-vectors.  The general Matern's
+    instances (``general``) add their pair list (a membership bit and a
+    16-bit index a pair of the strict lower triangle, the bins' counts) and
+    in the backward (``vecs == _BWD_VECS``) the dg/ds and dg/dnu triangles:
+    csrc/matern_solve.cu ``gen_warp_bytes``."""
+    words = F * F + F * d + vecs * F
+    if not general:
+        return words * itemsize
+    pairs = F * (F - 1) // 2
+    if vecs == _BWD_VECS:
+        words += 2 * pairs
+    return (_up16(words * itemsize) + _up16(4 * ((pairs + 31) // 32 + _NBIN))
+            + _up16(2 * pairs))
 
 
 def _max_f(d: int, dtype: torch.dtype, vecs: int) -> int:
@@ -152,22 +185,30 @@ def max_neighbors(d: int, dtype: torch.dtype) -> int:
     of shared memory.  For d=2 that is F=75 in float64, F=107 in float32.
     The forward holds three F-vectors but takes the same bound, so a value
     is only computed where its gradient can be.  The general Matern takes
-    the same bound: on the shared-memory route its backward recomputes
-    dC/dnu in the contraction loop (no fourth vector), and the register
-    route's fourth triangle fits its 227 KB at every F it takes.  Above the
-    bound ``u_entries`` gives the general Matern to the packed path."""
+    the same bound: on the shared-memory route its instances add a pair
+    list and, in the backward, the dg/ds and dg/dnu triangles (g itself in
+    the matrix's free upper triangle), and take dynamic shared memory
+    above 48 KB a block (99 KB a warp for H5 at F=75 in float64); the
+    register route's fourth triangle fits its 227 KB at every F it takes.
+    Above the bound ``u_entries`` gives the general Matern to the packed
+    path."""
     return _max_f(d, dtype, _BWD_VECS)
 
 
-def _warps(name, F, d, dtype, vecs, bound):
-    """Warps per block for F x F matrices and ``vecs`` F-vectors a warp;
-    raises above ``bound``."""
+def _warps(name, F, d, dtype, vecs, bound, general=False):
+    """Warps per block for F x F matrices and ``vecs`` F-vectors a warp
+    (with the general Matern's pair list and triangles: ``general``): as
+    many as fit 48 KB, else one warp with the larger dynamic size, which
+    the launch allows; raises above ``bound``."""
     if F > bound:
         raise ValueError(
             f"{name}: F={F} exceeds the shared-memory bound "
             f"F <= {bound} for d={d}, {dtype}")
     per_warp = _smem_per_warp(F, d, torch.empty((), dtype=dtype).element_size(),
-                              vecs)
+                              vecs, general)
+    if per_warp > _SMEM_OPT_IN:
+        raise ValueError(f"{name}: {per_warp} bytes of shared memory a warp "
+                         f"at F={F}, d={d}, {dtype}")
     return max(1, min(_MAX_WARPS, _SMEM_PER_BLOCK // per_warp))
 
 
@@ -300,36 +341,54 @@ def _device(name, t):
     return True
 
 
-def _launch(locs, NN, valid, resp, nug_point, covparms):
+def _stats_ptr(stats, F, dtype, gen, device):
+    """The data pointer of a launch's ``stats`` (None: none); only the
+    general instances on the shared-memory route count."""
+    if stats is None:
+        return None
+    if gen is None or route(F, dtype) != "shared":
+        raise ValueError("stats: only the general Matern's instances on the "
+                         "shared-memory route count their pairs")
+    if stats.shape != (len(STATS_FIELDS),) or stats.dtype != torch.int64 \
+            or stats.device != device:
+        raise ValueError(f"stats: int64 ({len(STATS_FIELDS)},) on {device}")
+    return stats.data_ptr()
+
+
+def _launch(locs, NN, valid, resp, nug_point, covparms, stats=None):
+    """H1 on CUDA tensors; ``stats``: see ``STATS_FIELDS``."""
     n, F = NN.shape
     d = locs.shape[1]
-    warps = _warps("matern_solve_e0", F, d, locs.dtype, _FWD_VECS,
-                   max_neighbors(d, locs.dtype))
     sig2, rho, nu_idx, gen = _params(covparms, locs.dtype)
+    warps = _warps("matern_solve_e0", F, d, locs.dtype, _FWD_VECS,
+                   max_neighbors(d, locs.dtype), gen is not None)
     locs, NN, valid, resp, nug_point = (
         t.contiguous() for t in (locs, NN, valid, resp, nug_point))
     x = torch.empty(n, F, dtype=locs.dtype, device=locs.device)
     args = (locs.data_ptr(), d, NN.data_ptr(), valid.data_ptr(),
             resp.data_ptr(), nug_point.data_ptr(), n, F, sig2, rho, nu_idx,
             None if gen is None else gen.ctypes.data, x.data_ptr())
+    counts = _stats_ptr(stats, F, locs.dtype, gen, locs.device)
     if route(F, locs.dtype) == "registers":
         rc = cuda.entry("gpv_matern_solve_e0_regs", locs.dtype)(
             *args, cuda.stream(locs.device))
     else:
         rc = cuda.entry("gpv_matern_solve_e0", locs.dtype)(
-            *args, warps, cuda.stream(locs.device))
+            *args, counts, warps, cuda.stream(locs.device))
     cuda.check(rc, "matern_solve_e0")
     trace.count("launches.matern_solve_e0" if gen is None
                 else "launches.matern_solve_e0[general]")
     return x
 
 
-def _launch_bwd(locs, NN, valid, resp, nug_point, covparms, x, xbar):
+def _launch_bwd(locs, NN, valid, resp, nug_point, covparms, x, xbar,
+                stats=None):
+    """H5 on CUDA tensors; ``stats``: see ``STATS_FIELDS``."""
     n, F = NN.shape
     d = locs.shape[1]
-    warps = _warps("matern_solve_e0_bwd", F, d, locs.dtype, _BWD_VECS,
-                   max_neighbors(d, locs.dtype))
     sig2, rho, nu_idx, gen = _params(covparms, locs.dtype)
+    warps = _warps("matern_solve_e0_bwd", F, d, locs.dtype, _BWD_VECS,
+                   max_neighbors(d, locs.dtype), gen is not None)
     locs, NN, valid, resp, nug_point, x, xbar = (
         t.contiguous() for t in (locs, NN, valid, resp, nug_point, x, xbar))
     dpar = torch.empty(n, 2 if gen is None else 3, dtype=torch.float64,
@@ -339,12 +398,13 @@ def _launch_bwd(locs, NN, valid, resp, nug_point, covparms, x, xbar):
             resp.data_ptr(), nug_point.data_ptr(), n, F, sig2, rho, nu_idx,
             None if gen is None else gen.ctypes.data, x.data_ptr(),
             xbar.data_ptr(), dpar.data_ptr(), dslot.data_ptr())
+    counts = _stats_ptr(stats, F, locs.dtype, gen, locs.device)
     if route(F, locs.dtype) == "registers":
         rc = cuda.entry("gpv_matern_solve_e0_bwd_regs", locs.dtype)(
             *args, cuda.stream(locs.device))
     else:
         rc = cuda.entry("gpv_matern_solve_e0_bwd", locs.dtype)(
-            *args, warps, cuda.stream(locs.device))
+            *args, counts, warps, cuda.stream(locs.device))
     cuda.check(rc, "matern_solve_e0_bwd")
     trace.count("launches.matern_solve_e0_bwd" if gen is None
                 else "launches.matern_solve_e0_bwd[general]")

@@ -149,6 +149,70 @@ def test_h1_h5_share_the_shared_memory_bound(dtype):
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_general_h1_h5_share_the_shared_memory_bound(dtype):
+    """At a general smoothness H1 and H5 refuse the same F as at the closed
+    forms, before any launch, though their warps hold more."""
+    F = max_neighbors(2, dtype) + 1
+    locs = torch.zeros(F, 2, dtype=dtype)
+    NN = torch.arange(F, dtype=torch.int32)[None]
+    valid = torch.ones(1, F, dtype=torch.bool)
+    nug = torch.zeros(F, dtype=dtype)
+    x = torch.zeros(1, F, dtype=dtype)
+    cp = torch.tensor([1.0, 0.2, 0.8])
+    bound = f"F <= {F - 1} for d=2"
+    with pytest.raises(ValueError, match=bound):
+        ms._launch(locs, NN, valid, valid, nug, cp)
+    with pytest.raises(ValueError, match=bound):
+        ms._launch_bwd(locs, NN, valid, valid, nug, cp, x, x)
+
+
+@pytest.mark.parametrize("F,dtype", [(41, torch.float64), (38, torch.float64),
+                                     (75, torch.float64),
+                                     (107, torch.float32)])
+@pytest.mark.parametrize("vecs", [ms._FWD_VECS, ms._BWD_VECS])
+def test_general_shared_route_counts_its_pair_list(F, dtype, vecs):
+    """A warp of the general instances on the shared-memory route holds the
+    closed forms' matrix, coordinates and vectors, then the pair list (a
+    membership bit and a 16-bit index a pair of the strict lower triangle,
+    32 bin counts), and in the backward the dg/ds and dg/dnu triangles
+    (``csrc/matern_solve.cu`` ``gen_warp_bytes``), each part 16-byte
+    aligned; the block ``_warps`` chooses fits the opt-in limit, and the
+    bound on F stays the closed forms' (F = 75 in float64, 107 in
+    float32)."""
+    isz = torch.empty((), dtype=dtype).element_size()
+    pairs = F * (F - 1) // 2
+    values = ms._smem_per_warp(F, 2, isz, vecs) + (
+        2 * pairs * isz if vecs == ms._BWD_VECS else 0)
+    want = sum(-(-b // 16) * 16 for b in (
+        values, 4 * (-(-pairs // 32) + 32), 2 * pairs))
+    got = ms._smem_per_warp(F, 2, isz, vecs, general=True)
+    assert got == want and got % 16 == 0
+    assert got > ms._smem_per_warp(F, 2, isz, vecs)
+    warps = ms._warps("matern_solve_e0", F, 2, dtype, vecs,
+                      max_neighbors(2, dtype), general=True)
+    assert warps * got <= ms._SMEM_OPT_IN
+    assert warps == max(1, min(ms._MAX_WARPS, ms._SMEM_PER_BLOCK // got))
+    assert (max_neighbors(2, torch.float64),
+            max_neighbors(2, torch.float32)) == (75, 107)
+
+
+def test_only_the_general_shared_instances_take_stats():
+    """The engagement counts exist only where the pair list does: the
+    general instances on the shared-memory route; any other launch given
+    ``stats`` raises, as does a buffer of the wrong shape or type."""
+    gen = ms.general_params(0.8, torch.float64)
+    stats = torch.zeros(len(ms.STATS_FIELDS), dtype=torch.int64)
+    cpu = torch.device("cpu")
+    assert ms._stats_ptr(None, 21, torch.float64, None, cpu) is None
+    assert ms._stats_ptr(stats, 41, torch.float64, gen, cpu) == \
+        stats.data_ptr()
+    for F, g, st in ((41, None, stats), (21, gen, stats),
+                     (41, gen, stats.int()), (41, gen, stats[:3])):
+        with pytest.raises(ValueError, match="stats"):
+            ms._stats_ptr(st, F, torch.float64, g, cpu)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
 @pytest.mark.parametrize("F0,F1", [(5, 8), (21, 24)])
 def test_plain_versions_ignore_identity_padding(F0, F1, dtype):
     """H1 and H5 round F up to an instantiated size with invalid slots,
