@@ -7,48 +7,37 @@ run by the benchmark's own runs).
 Runs the cell as ``run.py`` does for each seed, with the program in
 ``--dtype`` (float32: the configuration's float64 one precision down, the
 control that has to come out not correct), and prints each seed's compared
-numbers.  ``--corners`` first evaluates the program at the corners and the
-centre of the traffic's box in float64 and float32 and prints the rows each
-drops (a row whose conditioning covariance is not positive definite).
+numbers.  ``--corners`` first prints the kind's corners on the seed 1's
+inputs, where its module gives them (``kinds/<entry>.py``): for the
+Gaussian kinds the program at the corners and the centre of the traffic's
+box in float64 and float32, with the rows each drops (a row whose
+conditioning covariance is not positive definite).
 """
 
 from __future__ import annotations
 
 import argparse
-import itertools
 import json
-import math
 import sys
 
 import run as R  # noqa: F401  (sets the cache directories and sys.path)
-
-import torch  # noqa: E402
 
 from portbench.lib import cache, data, entries  # noqa: E402
 from portbench.lib.cell import Cell  # noqa: E402
 
 
 def corners(cell):
-    from gpvecchia_torch import loglik_fn
+    kind = entries.load_kind(cell.traffic)
+    if not hasattr(kind, "corners"):
+        print(f"control: the kind '{cell.traffic['entry']}' gives no "
+              "corners", file=sys.stderr, flush=True)
+        return
     locs = data.locations(cell.config)
     spec, _ = cache.program_spec(
         cell, lambda: entries.build_spec(locs, cell.config))
-    z = data.observations(locs, cell.traffic["field"], 1, "cuda")
-    box = cell.traffic["box"]
-    keys = data.BOX_KEYS
-    pts = [dict(zip(keys, c)) for c in itertools.product(
-        *[box[k] for k in keys])]
-    pts.append({k: math.sqrt(box[k][0] * box[k][1]) for k in keys})
-    for name in ("float64", "float32"):
-        dt = entries.DTYPES[name]
-        fn = loglik_fn(spec, device="cuda", dtype=dt, with_aux=True)
-        for p in pts:
-            cp = torch.tensor([p["sig2"], p["range"], p["nu"]],
-                              dtype=torch.float64)
-            ll, aux = fn(z.to(dt), cp, p["nugget"])
-            print(json.dumps({"dtype": name, **p, "loglik": float(ll),
-                              "dropped": int(aux["n_dropped_rows"])}),
-                  flush=True)
+    inputs = kind.inputs(locs, cell.traffic, 1, "cuda")
+    for row in kind.corners(spec, inputs, cell.traffic, "cuda"):
+        print(json.dumps(row), flush=True)
 
 
 def main():

@@ -1,5 +1,6 @@
-"""``correct``: the program's answers at a sample of the window's steps,
-drawn from the seed, against the plain reference at the same inputs."""
+"""``correct``'s parts for the kinds of traffic: which of the window's
+steps are checked, drawn from the seed, and the comparison of a Gaussian
+likelihood's answers with the plain reference at the same inputs."""
 
 from __future__ import annotations
 
@@ -12,16 +13,22 @@ def _finite(x):
     return x is not None and all(math.isfinite(v) for v in np.ravel(x))
 
 
-def compare(traffic, outs, pts, prob, seed_rng):
-    """(correct, {name: {"value", "limit"}}): the widest relative gap of the
-    value, of the gradient (by its largest entry, against the reference's
-    largest), and the rows the reference had to drop, over
-    ``traffic["check_steps"]`` sampled steps."""
+def sample_steps(n_steps, traffic, seed_rng):
+    """The sorted indices of ``traffic["check_steps"]`` of the window's
+    ``n_steps`` steps (all of them where the window ran fewer)."""
+    k = min(n_steps, int(traffic["check_steps"]))
+    return sorted(seed_rng.choice(n_steps, size=k, replace=False).tolist())
+
+
+def gaussian(traffic, outs, pts, prob, seed_rng, grad):
+    """(correct, {name: {"value", "limit"}}, the steps checked): the widest
+    relative gap of the value, with ``grad`` of the gradient too (by its
+    largest entry, against the reference's largest), and the rows the
+    reference (``reference.likelihood.Problem``) had to drop, over the
+    sampled steps."""
     limits = traffic["check"]
-    grad = traffic["entry"] == "neg_loglik_value_grad"
     closed = traffic["box"]["nu"] == [0.5, 0.5]
-    k = min(len(outs), int(traffic["check_steps"]))
-    pick = sorted(seed_rng.choice(len(outs), size=k, replace=False).tolist())
+    pick = sample_steps(len(outs), traffic, seed_rng)
     worst = {"value_rel": 0.0}
     if grad:
         worst["grad_rel"] = 0.0

@@ -1,6 +1,7 @@
-"""A cell's inputs: the configuration's locations (fixed by the file), the
-traffic's sequence of parameter points (fixed by its file), and from
-``--seed`` the observations."""
+"""What a cell's inputs are made of, for the kinds of traffic to call:
+the configuration's locations (fixed by the file), a traffic's sequence of
+parameter points (fixed by its file), the Gaussian observations and the
+generators drawn from ``--seed``."""
 
 from __future__ import annotations
 
@@ -53,24 +54,25 @@ def observations(locs, field, seed, device):
     return z + math.sqrt(float(field["nugget"])) * noise
 
 
-def design(traffic):
-    """(P, 4) log-parameters (sig2, range, nu, nugget): the traffic's fixed
-    set of points, a Latin hypercube of the log box drawn from the file's
-    own ``design_seed``; a box side of one value pins that parameter."""
+def design(traffic, keys=BOX_KEYS):
+    """(P, len(keys)) log-parameters in the order of ``keys``: the
+    traffic's fixed set of points, a Latin hypercube of the log box drawn
+    from the file's own ``design_seed``; a box side of one value pins that
+    parameter."""
     P = int(traffic["design_points"])
     r = np.random.default_rng(int(traffic["design_seed"]))
-    u = (np.stack([r.permutation(P) for _ in BOX_KEYS], axis=1)
-         + r.uniform(size=(P, len(BOX_KEYS)))) / P
+    u = (np.stack([r.permutation(P) for _ in keys], axis=1)
+         + r.uniform(size=(P, len(keys)))) / P
     box = traffic["box"]
-    lo = np.log([box[k][0] for k in BOX_KEYS])
-    hi = np.log([box[k][1] for k in BOX_KEYS])
+    lo = np.log([box[k][0] for k in keys])
+    hi = np.log([box[k][1] for k in keys])
     return lo + (hi - lo) * u
 
 
-def points(traffic, count):
-    """(count, 4) log-parameters: the design's points in its order, pass
-    after pass.  The sequence is the traffic's, not the seed's, so every
-    seed asks for the same work in every window, whatever its length; the
-    seed draws the data and which answers are checked."""
-    d = design(traffic)
+def points(traffic, count, keys=BOX_KEYS):
+    """(count, len(keys)) log-parameters: the design's points in its
+    order, pass after pass.  The sequence is the traffic's, not the
+    seed's, so every seed asks for the same work in every window, whatever
+    its length; the seed draws the data and which answers are checked."""
+    d = design(traffic, keys)
     return np.resize(d, (count, d.shape[1]))

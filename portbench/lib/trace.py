@@ -28,8 +28,13 @@ class PlanShapes:
 
 @dataclasses.dataclass
 class Step:
+    """One priced pass of the window, as a kind's ``passes`` lists them
+    and each layer's cost file reads them: a step may be several passes."""
     grad: bool
     general_ops: tuple | None      # (forward, backward) pair operations
+    # solves through the pass's factor beyond the likelihood's own (a
+    # posterior mean's back-substitution), for a cost file that prices them
+    back_substitutions: int = 0
 
 
 def load_events(path):

@@ -4,16 +4,19 @@
         --trace <0|1>
 
 From the root of a checkout that holds ``gpvecchia_torch`` and
-``BENCHMARK.json``.  Set-up (spec from its cache or built, plan, device
-arrays, the cell's inputs from the seed, two warm-up steps that build
-every kernel) is ``setup_s``; the window then runs the traffic's steps back
-to back, one caller waiting for each answer, for ``--seconds``.  With
-``--trace 1`` the window runs under torch.profiler and the line carries
-the cell's per-layer metrics instead of its end-to-end ones.  After the
-window the program's state is freed and the plain reference recomputes a
-sample of the steps' answers, which decides ``correct``.  The compared
-numbers and their limits are the last lines on standard error and the
-``checks`` key, last, of the result line.
+``BENCHMARK.json``.  What a step does is the traffic's kind's
+(``portbench/kinds/<entry>.py``): its inputs, its call into the port, its
+points, its check and its priced passes.  Set-up (spec from its cache or
+built, plan, device arrays, the cell's inputs from the seed, the warm-up
+steps that build every kernel) is ``setup_s``; the window then runs the
+traffic's steps back to back, one caller waiting for each answer, for
+``--seconds``.  With ``--trace 1`` the window runs under torch.profiler
+and the line carries the cell's per-layer metrics instead of its
+end-to-end ones.  After the window the program's state is freed and the
+kind's check holds a sample of the steps' answers against the plain
+reference, which decides ``correct``.  The compared numbers and their
+limits are the last lines on standard error and the ``checks`` key, last,
+of the result line.
 """
 
 from __future__ import annotations
@@ -46,7 +49,6 @@ import torch  # noqa: E402
 
 FORBIDDEN = ("jax", "jaxlib", "flax", "gpvecchia_tpu")
 MAX_STEPS = 100_000
-GEN_ROW_STRIDE = 16       # rows between those whose pairs' terms are counted
 
 
 def forbidden_modules():
@@ -65,10 +67,11 @@ def run_cell(cell, seed, seconds, trace, device, dtype=None,
     """The result dict of one run of ``cell`` (``lib.cell.Cell``) on
     ``device``; ``dtype`` overrides the configuration's (the control)."""
     from portbench import reference
-    from portbench.lib import cache, check, data, entries
+    from portbench.lib import cache, data, entries
     from portbench.lib import trace as tr
 
     cfg, traffic = cell.config, cell.traffic
+    kind = entries.load_kind(traffic)
     dtype_name = dtype or cfg["dtype"]
     dt = entries.DTYPES[dtype_name]
     cuda = torch.device(device).type == "cuda"
@@ -79,14 +82,14 @@ def run_cell(cell, seed, seconds, trace, device, dtype=None,
         cell, lambda: entries.build_spec(locs, cfg), cache_dir)
     spans = {"spec": time.perf_counter() - t}
     log(f"spec {'built' if built else 'loaded'} in {spans['spec']:.1f} s")
-    z = data.observations(locs, traffic["field"], seed, device)
+    inputs = kind.inputs(locs, traffic, seed, device)
     t = time.perf_counter()
-    entry = entries.make(spec, z, traffic, dt, device)
+    entry = kind.Entry(spec, inputs, traffic, dt, device)
     spans["plan"] = time.perf_counter() - t
     log(f"plan and device arrays in {spans['plan']:.1f} s")
-    for lg in data.points(traffic, int(traffic["warmup_steps"])):
-        entry(lg)
-    pts = data.points(traffic, MAX_STEPS)
+    for p in kind.points(traffic, int(traffic["warmup_steps"])):
+        entry(p)
+    pts = kind.points(traffic, MAX_STEPS)
 
     _sync(device)
     if cuda:
@@ -126,7 +129,8 @@ def run_cell(cell, seed, seconds, trace, device, dtype=None,
         prof.export_chrome_trace(str(path))
         del prof
         ops, host = tr.load_events(path)
-        steps = _step_costs(spec, traffic, pts[:len(outs)], dt, device, entry)
+        steps = kind.passes(spec, traffic, pts[:len(outs)], dt, device,
+                            entry)
         peaks = json.loads((ROOT / "portbench/costs/peaks.json").read_text())
         bound_s, flops = tr.layer_bounds(_plan_shapes(spec, dt), steps,
                                          peaks, dtype_name)
@@ -147,17 +151,16 @@ def run_cell(cell, seed, seconds, trace, device, dtype=None,
                                              "unit": m["unit"]}
 
     # the program's state goes before the reference runs
-    zh = z.cpu().numpy()
-    del entry, spec, z
+    host = inputs.cpu().numpy()
+    del entry, spec, inputs
     gc.collect()
     if cuda:
         torch.cuda.empty_cache()
     t = time.perf_counter()
     arrays = cache.reference_arrays(
         cell, lambda: reference.build(locs, cfg, device), cache_dir)
-    prob = reference.problem(arrays, locs, zh, device)
-    correct, checks, pick = check.compare(traffic, outs, pts, prob,
-                                          data.rng(seed, 3))
+    correct, checks, pick = kind.check(traffic, outs, pts, arrays, locs,
+                                       host, data.rng(seed, 3), device)
     log(f"reference: steps {pick} in {time.perf_counter() - t:.1f} s")
     failed = sum(1 for v, g in outs if not math.isfinite(v)
                  or (g is not None and not all(map(math.isfinite, g))))
@@ -176,26 +179,6 @@ def _plan_shapes(spec, dt):
     return PlanShapes(mf=mf, sz=torch.empty((), dtype=dt).element_size(),
                       n_all=locs.shape[0], dim=locs.shape[1],
                       n_rows=NN.shape[0], width=NN.shape[1])
-
-
-def _step_costs(spec, traffic, pts, dt, device, entry):
-    """The traced steps as the cost files read them: at a smoothness
-    without closed form, the pairs' operations at each step's range and
-    smoothness, counted on every GEN_ROW_STRIDE-th row."""
-    from portbench.costs import frozen
-    from portbench.lib import entries
-    from portbench.lib.trace import Step
-    nu_fixed = traffic["box"]["nu"][0] == traffic["box"]["nu"][1]
-    closed = nu_fixed and float(traffic["box"]["nu"][0]) in (0.5, 1.5, 2.5)
-    if closed:
-        return [Step(grad=entry.grad, general_ops=None)] * len(pts)
-    _, locs, NN = entries.plan_shapes(spec)
-    lt = torch.as_tensor(locs, device=device)
-    nt = torch.as_tensor(NN, device=device)
-    vt = nt >= 0
-    return [Step(grad=entry.grad, general_ops=frozen.gen_ops(
-        lt, nt, vt, math.exp(lg[1]), math.exp(lg[2]), dt,
-        row_stride=GEN_ROW_STRIDE)) for lg in pts]
 
 
 def _fmt(v):

@@ -5,6 +5,7 @@ from __future__ import annotations
 
 import json
 
+from portbench.lib import entries
 from portbench.lib.cell import BENCH, ROOT, Cell, load_traffic
 
 
@@ -19,9 +20,8 @@ def tiny_cell(traffic, n=1500, m=8):
     b = bench()
     work = {"name": f"tiny.{traffic}", "config": "tiny", "traffic": traffic,
             "chips": 1}
-    grad = load_traffic(traffic)["entry"] == "neg_loglik_value_grad"
-    suffix = ".vg" if grad else ".eval"
+    tr = load_traffic(traffic)
+    suffix = ".vg" if entries.load_kind(tr).Entry.grad else ".eval"
     per = [m for m in b["per_layer"] if m["name"].endswith(suffix)
            or "." not in m["name"]]
-    return Cell(work, json.dumps(cfg).encode(), load_traffic(traffic),
-                b["end_to_end"], per)
+    return Cell(work, json.dumps(cfg).encode(), tr, b["end_to_end"], per)

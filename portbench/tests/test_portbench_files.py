@@ -11,6 +11,7 @@ import re
 import pytest
 
 from portbench.lib import cell as cellmod
+from portbench.lib import entries
 from portbench.lib.cell import BENCH, ROOT, Cell
 from portbench.tests.helpers import bench
 
@@ -23,8 +24,9 @@ B = bench()
 def test_cell_resolves(w):
     cell = Cell.find(w["name"])
     assert cell.config["name"] == w["config"]
-    assert cell.traffic["entry"] in importlib.import_module(
-        "portbench.lib.entries").ENTRIES
+    kind = importlib.import_module(
+        f"portbench.kinds.{cell.traffic['entry']}")
+    assert all(hasattr(kind, n) for n in entries.KIND_NAMES)
     names = {m["name"] for m in cell.end_to_end}
     assert "setup_s" in names and len(names) >= 2
     assert cell.traffic["rate_metric"] in names

@@ -10,6 +10,7 @@ from __future__ import annotations
 import json
 import math
 import sys
+import types
 
 import pytest
 import torch
@@ -81,26 +82,40 @@ class _Altered:
                                 else [x * self.scale for x in g])
 
 
+def _patch_entry(monkeypatch, make):
+    """The kind loader's product with its ``Entry`` built by
+    ``make(Entry, spec, inputs, *rest)``."""
+    load = entries.load_kind
+
+    def load_patched(traffic):
+        kind = load(traffic)
+        out = types.SimpleNamespace(
+            **{n: getattr(kind, n) for n in entries.KIND_NAMES})
+        out.Entry = lambda *a: make(kind.Entry, *a)
+        return out
+
+    monkeypatch.setattr(entries, "load_kind", load_patched)
+
+
 @pytest.mark.parametrize("traffic", TRAFFIC)
 def test_altered_answer_is_not_correct(traffic, tmp_path, monkeypatch):
-    make = entries.make
-    monkeypatch.setattr(entries, "make",
-                        lambda *a: _Altered(make(*a), 1.0 + 1e-6))
-    assert _run(tiny_cell(traffic), tmp_path)["correct"] is False
+    cell = tiny_cell(traffic)
+    _patch_entry(monkeypatch,
+                 lambda Entry, *a: _Altered(Entry(*a), 1.0 + 1e-6))
+    assert _run(cell, tmp_path)["correct"] is False
 
 
 @pytest.mark.parametrize("traffic", TRAFFIC)
 def test_half_the_data_left_out_is_not_correct(traffic, tmp_path,
                                                monkeypatch):
-    make = entries.make
-
-    def half(spec, z, *rest):
+    def half(Entry, spec, z, *rest):
         z = z.clone()
         z[::2] = math.nan          # the likelihood's missing-data rule
-        return make(spec, z, *rest)
+        return Entry(spec, z, *rest)
 
-    monkeypatch.setattr(entries, "make", half)
-    assert _run(tiny_cell(traffic), tmp_path)["correct"] is False
+    cell = tiny_cell(traffic)
+    _patch_entry(monkeypatch, half)
+    assert _run(cell, tmp_path)["correct"] is False
 
 
 def test_forbidden_modules(monkeypatch):
